@@ -4,6 +4,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def datasets():
     from repro.data import sosd
