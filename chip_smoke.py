@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's learned-index read path on one NVIDIA card.
 
-    python3 chip_smoke.py [--n 200000000] [--queries 10000000]
-                          [--batch 1000000] [--seed 0]
+    python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
 
 Builds both hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain torch version bit for bit, then runs the main path
-at full size: the ``amzn`` surrogate, an RMI with 2^18 stage-2 models
-built through ``spec.build``, a ``LookupPlan`` compiled for the ``cuda``
-backend (fused and unfused) and the ``torch`` backend, every answer held
-against ``np.searchsorted`` on the host.  One JSON line per phase; any
+at full size on two surrogates: ``amzn``, whose RMI windows span much of
+the array, and ``wiki``, whose windows are narrow.  Each gets an RMI with
+2^18 stage-2 models built through ``spec.build`` and a ``LookupPlan``
+compiled for the ``cuda`` backend (fused and unfused) and the ``torch``
+backend; 10M queries in batches of 1M, every answer held against
+``np.searchsorted`` on the host.  Per-kernel times and the spread of the
+fused path's window widths follow each.  One JSON line per phase; any
 failure exits nonzero.  The last line is the device summary
 ``{"ok": true, "device": {...}}``.  Full results go to ``--out``.
 
@@ -30,6 +32,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 LANE_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
 CHECK_N = 1_000_000            # keys and queries of the kernel-vs-plain phase
+QUERIES = 10_000_000           # queries of each main-path run
+BATCH = 1_000_000              # queries per lookup call
+BRANCHING = 2 ** 18            # RMI stage-2 models, the top rung of its ladder
+# main-path cells: amzn first (its numbers make the `kernels` line), then a
+# surrogate on which the RMI's windows are narrow
+MAIN_DATASETS = ("amzn", "wiki")
 KERNEL_SOURCES = {
     "bounded_search": ("src/repro_torch/csrc/bounded_search.cu",
                        "src/repro/kernels/bounded_search/kernel.py:61"),
@@ -162,8 +170,9 @@ def phase_kernels_vs_plain(dev, seed, log, errs):
         check(e1 == 0 and exact, f"bounded_search vs plain on {case}")
 
 
-def phase_main_path(dev, args, log):
-    """The port's read path at full size, through its public entry points."""
+def phase_main_path(dev, dataset, args, log):
+    """The port's read path at full size, through its public entry points.
+    Launch counts are zeroed just before the runs and read just after."""
     import numpy as np
     import torch
     from repro_torch.core import plan, spec
@@ -173,28 +182,30 @@ def phase_main_path(dev, args, log):
     from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 
     t0 = time.perf_counter()
-    keys = sosd.generate("amzn", args.n, seed=args.seed)
+    keys = sosd.generate(dataset, args.n, seed=args.seed)
     t_gen = time.perf_counter() - t0
-    queries = sosd.make_queries(keys, args.queries, seed=args.seed)
+    queries = sosd.make_queries(keys, QUERIES, seed=args.seed)
     t0 = time.perf_counter()
     lb = np.searchsorted(keys, queries)
     t_oracle = time.perf_counter() - t0
     qt = encode_keys(queries, dev)
+    del queries
 
     torch.cuda.reset_peak_memory_stats()
     rmi_kernel.launch.launches = 0
     bs_kernel.launch.launches = 0
     t0 = time.perf_counter()
-    build = spec.build(spec.IndexSpec("rmi", {"branching": 2 ** 18}), keys,
+    build = spec.build(spec.IndexSpec("rmi", {"branching": BRANCHING}), keys,
                        device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     p = plan.lower(build, encode_keys(keys, dev))
-    emit({"phase": "main_path_setup", "dataset": "amzn", "n": args.n,
-          "queries": args.queries, "batch": args.batch,
-          "branching": 2 ** 18, "max_err": p.bounds.max_err,
-          "size_bytes": build.size_bytes, "generate_s": t_gen,
-          "build_s": t_build, "host_oracle_s": t_oracle}, log)
+    del keys
+    emit({"phase": "main_path_setup", "dataset": dataset, "n": args.n,
+          "queries": QUERIES, "batch": BATCH, "branching": BRANCHING,
+          "max_err": p.bounds.max_err, "size_bytes": build.size_bytes,
+          "generate_s": t_gen, "build_s": t_build,
+          "host_oracle_s": t_oracle}, log)
 
     runs = [("cuda", True), ("cuda", False), ("torch", None), ("cuda", True)]
     e2e = {}
@@ -203,36 +214,64 @@ def phase_main_path(dev, args, log):
         fn = p.compile(backend, fused=fused)
         torch.cuda.synchronize()
         t_compile = time.perf_counter() - t0
-        fn(qt[:args.batch])                       # warm-up batch
+        fn(qt[:BATCH])                            # warm-up batch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = [fn(qt[i:i + args.batch])
-                for i in range(0, args.queries, args.batch)]
+        outs = [fn(qt[i:i + BATCH]) for i in range(0, QUERIES, BATCH)]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = torch.cat(outs).cpu().numpy()
         exact = bool(got.shape == lb.shape and (got == lb).all())
         label = backend if fused is None else \
             f"{backend}_{'fused' if fused else 'unfused'}"
-        rec = {"phase": "main_path", "backend": label,
+        rec = {"phase": "main_path", "dataset": dataset, "backend": label,
                "last_mile": p.last_mile if backend == "torch" else "kernel",
                "compile_s": t_compile, "seconds": dt,
-               "ns_per_lookup": dt / args.queries * 1e9,
-               "lookups_per_s": args.queries / dt, "exact": exact}
+               "ns_per_lookup": dt / QUERIES * 1e9,
+               "lookups_per_s": QUERIES / dt, "exact": exact}
         e2e.setdefault(label, rec)
         emit(rec, log)
-        check(exact, f"main path {label} != np.searchsorted")
+        check(exact, f"main path {dataset}/{label} != np.searchsorted")
     launches = {"rmi_lookup": rmi_kernel.launch.launches,
                 "bounded_search": bs_kernel.launch.launches}
     peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "main_path_launches", **launches,
+    emit({"phase": "main_path_launches", "dataset": dataset, **launches,
           "peak_device_bytes": peak}, log)
     for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+        check(count > 0, f"{name} was not launched on the {dataset} main path")
     return p, qt, launches, e2e
 
 
-def phase_timings(dev, p, qt, args, launches, errs, log):
+def window_spread(lo, hi, max_err: int) -> dict:
+    """Spread of the fused path's window widths ``hi - lo + 1`` over one
+    batch, and the trip counts a search sized per query, or per warp of 32
+    neighbouring queries, would need beside the ``lb_steps(max_err)`` that
+    the bounded-search kernel runs for every query."""
+    import torch
+    from repro_torch.kernels.common import lb_steps
+
+    w = (hi.long() - lo.long() + 1).clamp(min=1)
+    ws = torch.sort(w).values
+    m = ws.numel()
+
+    def steps(x):  # lb_steps elementwise
+        return torch.ceil(torch.log2((x.double() + 1).clamp(min=2))) + 1
+
+    warp_max = w[: m // 32 * 32].view(-1, 32).max(dim=1).values
+    return {
+        **{f"p{int(f * 100)}": int(ws[min(int(f * m), m - 1)])
+           for f in (0.5, 0.9, 0.99)},
+        "max": int(ws[-1]), "max_err": max_err,
+        "share_above_2048": float((w > 2048).double().mean()),
+        "share_above_max_err_over_8": float(
+            (w > max_err // 8).double().mean()),
+        "lb_steps_max_err": lb_steps(max_err),
+        "mean_lb_steps_per_query": float(steps(w).mean()),
+        "mean_lb_steps_per_warp": float(steps(warp_max).mean()),
+    }
+
+
+def phase_timings(p, qt, dataset, launches, errs, log):
     """Per-kernel device time at the main path's shapes, beside the plain
     version, the one-call library yardstick, and the bound."""
     import torch
@@ -244,27 +283,31 @@ def phase_timings(dev, p, qt, args, launches, errs, log):
 
     st = p._cache["_rmi_f32_state"]
     data = p.data
-    q0 = qt[:args.batch].contiguous()
+    q0 = qt[:BATCH].contiguous()
     m = q0.shape[0]
     lo, hi = rmi_kernel.launch(st, q0)
+    lo_only, no_hi = rmi_kernel.launch(st, q0, with_hi=False)
     plo, phi = rops.rmi_bounds_plain(st, q0)
     steps = lb_steps(st.max_err)
     pos = bs_kernel.launch(data, q0, lo, st.max_err, steps)
     ppos = bops.lower_bound_windows_plain(data, q0, lo, st.max_err)
     torch.cuda.synchronize()
-    check(torch.equal(lo, plo) and torch.equal(hi, phi),
-          "rmi_lookup vs plain at main-path shapes")
-    check(torch.equal(pos, ppos), "bounded_search vs plain at main-path shapes")
+    check(torch.equal(lo, plo) and torch.equal(hi, phi)
+          and torch.equal(lo_only, lo) and no_hi is None,
+          f"rmi_lookup vs plain at {dataset} main-path shapes")
+    check(torch.equal(pos, ppos),
+          f"bounded_search vs plain at {dataset} main-path shapes")
 
     kernels = []
-    b2_bound, b2_by = bound(m * (8 + 4 + 4) + st.branching * 12, m * 12)
+    # the fused path's B2 writes lo only (4 bytes a query)
+    b2_bound, b2_by = bound(m * (8 + 4) + st.branching * 12, m * 12)
     kernels.append({
         "name": "rmi_lookup", "route": "cuda",
         "source": KERNEL_SOURCES["rmi_lookup"][0],
         "replaces": KERNEL_SOURCES["rmi_lookup"][1],
         "launches": launches["rmi_lookup"],
         "max_abs_err": errs["rmi_lookup"],
-        "ms": cuda_ms(lambda: rmi_kernel.launch(st, q0)),
+        "ms": cuda_ms(lambda: rmi_kernel.launch(st, q0, with_hi=False)),
         "plain_ms": cuda_ms(lambda: rops.rmi_bounds_plain(st, q0)),
         "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None})
     b1_bound, b1_by = bound(m * (8 + 4 + 4) + m * max(steps - 2, 0) * 32,
@@ -281,19 +324,21 @@ def phase_timings(dev, p, qt, args, launches, errs, log):
             data, q0, lo, st.max_err)),
         "bound_ms": b1_bound, "bound_by": b1_by,
         "library_ms": cuda_ms(lambda: torch.searchsorted(data, q0))})
-    emit({"phase": "timings", "batch": m, "max_err": st.max_err,
-          "lb_steps": steps, "branching": st.branching,
-          "kernels": {k["name"]: {f: k[f] for f in ("ms", "plain_ms",
-                                                    "bound_ms", "library_ms")}
-                      for k in kernels}}, log)
+    emit({"phase": "timings", "dataset": dataset, "batch": m,
+          "branching": st.branching, "lb_steps": steps,
+          "rmi_lookup_with_hi_ms": cuda_ms(lambda: rmi_kernel.launch(st, q0)),
+          "window": window_spread(lo, hi, st.max_err),
+          "kernels": {k["name"]: {f: k[f] for f in (
+              "launches", "ms", "plain_ms", "bound_ms", "library_ms")}
+              for k in kernels}}, log)
     return kernels
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=200_000_000)
-    ap.add_argument("--queries", type=int, default=10_000_000)
-    ap.add_argument("--batch", type=int, default=1_000_000)
+    ap.add_argument("--n", type=int, default=200_000_000,
+                    help="keys of each main-path cell (halve it only if the "
+                         "run's time limit forces it)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
@@ -303,6 +348,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    import gc
+
     import numpy as np
     import repro_torch.core  # noqa: F401  (fails outside a checkout)
 
@@ -317,11 +364,17 @@ def main(argv=None) -> int:
     build_s = phase_build(log)
     errs = {"rmi_lookup": 0, "bounded_search": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
-    p, qt, launches, e2e = phase_main_path(dev, args, log)
-    kernels = phase_timings(dev, p, qt, args, launches, errs, log)
-    summary = {"card": smi, "n": args.n, "queries": args.queries,
-               "build_wall_s": build_s, "end_to_end": e2e,
-               "kernels": kernels,
+    cells = {}
+    for ds in MAIN_DATASETS:
+        p, qt, launches, e2e = phase_main_path(dev, ds, args, log)
+        cells[ds] = {"end_to_end": e2e,
+                     "kernels": phase_timings(p, qt, ds, launches, errs, log)}
+        del p, qt
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernels = cells[MAIN_DATASETS[0]]["kernels"]
+    summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
+               "build_wall_s": build_s, "cells": cells,
                "total_s": time.perf_counter() - t_start, "log": log}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

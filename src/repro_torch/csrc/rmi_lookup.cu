@@ -15,7 +15,7 @@
 // intrinsics reproduce bit for bit.
 //
 // What bounds it on this card: bytes.  Each query reads 8 bytes and writes
-// 8; the table (12 bytes a bucket, 3 MB at 2^18 buckets) is gathered at
+// 4 (lo) or 8 (lo, hi); the table (12 bytes a bucket, 3 MB at 2^18 buckets) is gathered at
 // random, so each gather is a 32-byte L2 sector.
 //
 // What the design does about it: the TPU sorted queries by bucket and
@@ -54,11 +54,14 @@ __global__ void rmi_bounds_kernel(const long long* __restrict__ queries,
   pred = fminf(fmaxf(pred, -1.0f), hi_clamp);  // guard the int32 casts
   const int e = __ldg(err + bkt);
   int lo = (int)floorf(pred) - e;
-  int hi = (int)ceilf(pred) + e;
   lo = lo < 0 ? 0 : (lo > n ? n : lo);
-  hi = hi < 0 ? 0 : (hi > n ? n : hi);
   lo_out[i] = lo;
-  hi_out[i] = hi;
+  // the fused lookup searches [lo, lo + max_err) and never reads hi, so it
+  // passes no hi buffer and the kernel writes 4 bytes a query, not 8
+  if (hi_out != nullptr) {
+    int hi = (int)ceilf(pred) + e;
+    hi_out[i] = hi < 0 ? 0 : (hi > n ? n : hi);
+  }
 }
 
 }  // namespace

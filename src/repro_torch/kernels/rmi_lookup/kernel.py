@@ -27,9 +27,10 @@ def _lib():
     return lib
 
 
-def launch(state, queries: torch.Tensor):
+def launch(state, queries: torch.Tensor, with_hi: bool = True):
     """(lo, hi) int32 bounds for encoded ``queries`` under an
-    `ops.F32RMIState` whose tables lie on the queries' CUDA device."""
+    `ops.F32RMIState` whose tables lie on the queries' CUDA device.
+    ``with_hi=False`` returns ``(lo, None)``: the kernel writes no hi."""
     dev = queries.device
     if not queries.is_cuda or queries.dtype != torch.int64 \
             or queries.dim() != 1 or not queries.is_contiguous():
@@ -43,7 +44,7 @@ def launch(state, queries: torch.Tensor):
                              f"[{state.branching}] on {dev}")
     m = queries.shape[0]
     lo = torch.empty(m, dtype=torch.int32, device=dev)
-    hi = torch.empty(m, dtype=torch.int32, device=dev)
+    hi = torch.empty(m, dtype=torch.int32, device=dev) if with_hi else None
     if m == 0:
         return lo, hi
     with torch.cuda.device(dev):
@@ -53,7 +54,7 @@ def launch(state, queries: torch.Tensor):
             state.inv_range, state.scale_f32, state.hi_clamp,
             state.branching, state.n, state.a2.data_ptr(),
             state.b2.data_ptr(), state.err.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), stream)
+            hi.data_ptr() if with_hi else None, stream)
     if rc != 0:
         raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
     launch.launches += 1

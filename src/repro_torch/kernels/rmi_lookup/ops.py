@@ -128,14 +128,17 @@ def rmi_bounds_plain(state: F32RMIState, queries):
     return _ref.rmi_bounds_ref(state, queries, state.n)
 
 
-def rmi_bounds(state: F32RMIState, queries):
-    """Fused f32 inference: encoded queries -> int32 (lo, hi)."""
+def rmi_bounds(state: F32RMIState, queries, with_hi: bool = True):
+    """Fused f32 inference: encoded queries -> int32 (lo, hi), or
+    ``(lo, None)`` with ``with_hi=False``."""
     if queries.device.type == "cpu":
-        return rmi_bounds_plain(state, queries)
-    return kernel.launch(state, queries)
+        lo, hi = rmi_bounds_plain(state, queries)
+        return lo, (hi if with_hi else None)
+    return kernel.launch(state, queries, with_hi=with_hi)
 
 
 def rmi_lookup(state: F32RMIState, data, queries):
-    """End-to-end: fused RMI bounds -> bounded last-mile search -> exact LB."""
-    lo, _hi = rmi_bounds(state, queries)
+    """End-to-end: fused RMI bounds -> bounded last-mile search -> exact LB.
+    The search covers ``[lo, lo + max_err)``, so ``hi`` is not formed."""
+    lo, _ = rmi_bounds(state, queries, with_hi=False)
     return lower_bound_windows(data, queries, lo, max_width=state.max_err)

@@ -76,6 +76,8 @@ def test_rmi_kernel_vs_plain(card, ds, branching):
     assert rmi_kernel.launch.launches == before + 1
     plo, phi = ops.rmi_bounds_plain(st, qt)
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    lo_only, no_hi = ops.rmi_bounds(st, qt, with_hi=False)
+    assert no_hi is None and torch.equal(lo_only, lo)
     lb = np.searchsorted(keys, q)
     assert ((lo.cpu().numpy() <= lb) & (lb <= hi.cpu().numpy())).all()
     pos = ops.rmi_lookup(st, encode_keys(keys, card), qt)

@@ -90,6 +90,18 @@ def test_empty_buckets_and_cpu_path_count_no_launch():
         kernel.launch(st, encode_keys(q, "cpu"))
 
 
+def test_bounds_without_hi_keep_lo():
+    """The fused lookup asks for lo alone; lo is the same either way."""
+    keys = rsosd.generate("wiki", 20_000, seed=4)
+    q = np.concatenate([rsosd.make_queries(keys, 2_000, seed=6), EXTREMES])
+    st = ops.prepare_f32_state(keys, branching=512, device="cpu")
+    qt = encode_keys(q, "cpu")
+    lo, hi = ops.rmi_bounds(st, qt)
+    lo_only, no_hi = ops.rmi_bounds(st, qt, with_hi=False)
+    assert no_hi is None and hi is not None
+    assert torch.equal(lo_only, lo)
+
+
 def test_lookup_ref_is_searchsorted():
     keys = rsosd.generate("osm", 5_000, seed=1)
     q = rsosd.make_queries(keys, 1_000, seed=2)
