@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
 
-Builds both hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain torch version bit for bit, then runs the main path
-at full size on two surrogates: ``amzn``, whose RMI windows span much of
-the array, and ``wiki``, whose windows are narrow.  Each gets an RMI with
-2^18 stage-2 models built through ``spec.build`` and a ``LookupPlan``
-compiled for the ``cuda`` backend (fused and unfused) and the ``torch``
-backend; 10M queries in batches of 1M, every answer held against
-``np.searchsorted`` on the host.  Per-kernel times and the spread of the
-fused path's window widths follow each.  One JSON line per phase; any
-failure exits nonzero.  The last line is the device summary
-``{"ok": true, "device": {...}}``.  Full results go to ``--out``.
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (and,
+for the timing phase only, the designs they did not keep, from
+``csrc/timing``), holds each against its plain torch version bit for bit,
+then runs the main path at full size on two surrogates: ``amzn``, on which
+12% of the RMI's windows span much of the array, and ``wiki``, whose
+windows are narrow.  Each gets an RMI with 2^18 stage-2 models built
+through ``spec.build`` and a ``LookupPlan`` compiled for the ``cuda``
+backend (fused: one ``rmi_lookup`` launch a batch; unfused: the torch
+predict, then ``bounded_search``) and the ``torch`` backend; 10M queries in
+batches of 1M, every answer held against ``np.searchsorted`` on the host.
+
+Per cell, after the main path: the device's idle share over the fused
+path's 10 batches, and on amzn a ``torch.profiler`` window over them
+(device time by kernel, idle share); the kernels' device times at the main
+path's shapes beside their plain versions, bounds and
+``torch.searchsorted``, the last mile in three designs timed in turns
+(every query searching the batch's widest window; a window per query; a
+window per query with the block's queries regrouped by trip count) and the
+stage-2 table packed against three arrays; the spread of the windows; and
+the fused path end to end in turns against the two-launch path it
+replaced.  One JSON line per phase; any failure exits nonzero.  The last
+line is the device summary ``{"ok": true, "device": {...}}``.  Full
+results go to ``--out``.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -44,6 +56,11 @@ KERNEL_SOURCES = {
     "rmi_lookup": ("src/repro_torch/csrc/rmi_lookup.cu",
                    "src/repro/kernels/rmi_lookup/kernel.py:49"),
 }
+# designs the kernels did not keep, timed beside them; never on the path
+ALTERNATIVES = "src/repro_torch/csrc/timing/alternatives.cu"
+# the last mile's designs, in the order they are timed
+B1_DESIGNS = ("batch_width", "per_query", "per_query_regrouped")
+B1_KEPT = "per_query"
 
 
 class SmokeFailure(RuntimeError):
@@ -89,31 +106,99 @@ def bound(bytes_moved: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def diff(a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+class Alternatives:
+    """ctypes binding of the designs the kernels did not keep."""
+
+    def __init__(self):
+        import ctypes as ct
+
+        from repro_torch.kernels import _build
+        lib = _build.load("alternatives")
+        p, ll = ct.c_void_p, ct.c_longlong
+        model = [*[ct.c_float] * 6, ct.c_int, ct.c_int]
+        lib.bounded_search_regrouped.argtypes = [p, ll, p, p, p, p, ll, ll,
+                                                 p]
+        lib.rmi_bounds_three_arrays.argtypes = [p, ll, *model, p, p, p, p, p,
+                                                p]
+        lib.rmi_lookup_three_arrays.argtypes = [p, ll, *model, p, p, p, p,
+                                                ll, p, p]
+        for fn in (lib.bounded_search_regrouped, lib.rmi_bounds_three_arrays,
+                   lib.rmi_lookup_three_arrays):
+            fn.restype = ct.c_int
+        self.lib = lib
+
+    @staticmethod
+    def _stream():
+        import torch
+        return torch.cuda.current_stream().cuda_stream
+
+    def regrouped(self, data, q, lo, hi, max_width):
+        """B1, a window per query, the block's queries regrouped by trip
+        count (int32 lo, hi)."""
+        import torch
+        out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+        rc = self.lib.bounded_search_regrouped(
+            data.data_ptr(), data.shape[0], q.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), out.data_ptr(), q.shape[0], int(max_width),
+            self._stream())
+        check(rc == 0, f"bounded_search_regrouped: CUDA error {rc}")
+        return out
+
+    def three_arrays(self, st, q, with_hi: bool = True):
+        """B2 gathering a2, b2, err from three arrays."""
+        import torch
+        from repro_torch.kernels.rmi_lookup.kernel import model_args
+        m = q.shape[0]
+        lo = torch.empty(m, dtype=torch.int32, device=q.device)
+        hi = torch.empty(m, dtype=torch.int32, device=q.device) \
+            if with_hi else None
+        rc = self.lib.rmi_bounds_three_arrays(
+            q.data_ptr(), m, *model_args(st), st.a2.data_ptr(),
+            st.b2.data_ptr(), st.err.data_ptr(), lo.data_ptr(),
+            hi.data_ptr() if with_hi else None, self._stream())
+        check(rc == 0, f"rmi_bounds_three_arrays: CUDA error {rc}")
+        return lo, hi
+
+    def lookup_three_arrays(self, st, data, q):
+        """The fused lookup reading a2, b2, err from three arrays."""
+        import torch
+        from repro_torch.kernels.rmi_lookup.kernel import model_args
+        out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+        rc = self.lib.rmi_lookup_three_arrays(
+            q.data_ptr(), q.shape[0], *model_args(st), st.a2.data_ptr(),
+            st.b2.data_ptr(), st.err.data_ptr(), data.data_ptr(), st.max_err,
+            out.data_ptr(), self._stream())
+        check(rc == 0, f"rmi_lookup_three_arrays: CUDA error {rc}")
+        return out
+
+
 def phase_build(log):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    info = _build.build_all()
+    info = _build.build_all([os.path.join(ROOT, ALTERNATIVES)])
     wall = time.perf_counter() - t0
     for name, rec in sorted(info.items()):
         ptxas = [ln.strip() for ln in rec["ptxas"].splitlines()
                  if "Used" in ln or "spill" in ln or "Compiling" in ln]
         emit({"phase": "build", "kernel": name, "nvcc_s": rec["seconds"],
               "cached": rec["cached"], "ptxas": ptxas}, log)
-    check(set(KERNEL_SOURCES) <= set(info), f"kernels built: {sorted(info)}")
+    check({*KERNEL_SOURCES, "alternatives"} <= set(info),
+          f"kernels built: {sorted(info)}")
     return wall
 
 
 def phase_kernels_vs_plain(dev, seed, log, errs):
-    """Both kernels against their plain versions on every surrogate."""
+    """Every kernel entry against its plain version on every surrogate."""
     import numpy as np
     import torch
     from repro_torch.data import sosd
     from repro_torch.kernels.bounded_search import ops as bops
     from repro_torch.kernels.common import encode_keys
     from repro_torch.kernels.rmi_lookup import ops as rops
-
-    def diff(a, b):
-        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
     n = m = CHECK_N
     for ds in sosd.DATASETS:
@@ -127,23 +212,33 @@ def phase_kernels_vs_plain(dev, seed, log, errs):
             plo, phi = rops.rmi_bounds_plain(st, qt)
             pos = bops.lower_bound_windows(data, qt, lo, st.max_err)
             ppos = bops.lower_bound_windows_plain(data, qt, lo, st.max_err)
+            pos_hi = bops.lower_bound_windows(data, qt, lo, st.max_err, hi)
+            ppos_hi = bops.lower_bound_windows_plain(data, qt, lo,
+                                                     st.max_err, hi)
+            rank = rops.rmi_lookup(st, data, qt)
+            prank = rops.rmi_lookup_plain(st, data, qt)
             torch.cuda.synchronize()
-            e2 = max(diff(lo, plo), diff(hi, phi))
-            e1 = diff(pos, ppos)
-            errs["rmi_lookup"] = max(errs["rmi_lookup"], e2)
-            errs["bounded_search"] = max(errs["bounded_search"], e1)
+            e_bounds = max(diff(lo, plo), diff(hi, phi))
+            e_b1 = max(diff(pos, ppos), diff(pos_hi, ppos_hi))
+            e_fused = diff(rank, prank)
+            errs["rmi_bounds"] = max(errs["rmi_bounds"], e_bounds)
+            errs["bounded_search"] = max(errs["bounded_search"], e_b1)
+            errs["rmi_lookup"] = max(errs["rmi_lookup"], e_fused)
             valid = bool(((lo <= lb) & (lb <= hi)).all())
-            exact = bool((pos.long() == lb).all())
+            exact = all(bool((x.long() == lb).all())
+                        for x in (pos, pos_hi, rank))
             emit({"phase": "kernels_vs_plain", "dataset": ds, "n": n, "m": m,
                   "branching": branching, "max_err": st.max_err,
-                  "rmi_lookup_max_abs_err": e2,
-                  "bounded_search_max_abs_err": e1,
+                  "rmi_bounds_max_abs_err": e_bounds,
+                  "bounded_search_max_abs_err": e_b1,
+                  "rmi_lookup_max_abs_err": e_fused,
                   "bounds_valid": valid, "lb_exact": exact}, log)
-            check(e1 == 0 and e2 == 0 and valid and exact,
-                  f"kernel vs plain on {ds}/{branching}")
+            check(e_bounds == 0 and e_b1 == 0 and e_fused == 0 and valid
+                  and exact, f"kernel vs plain on {ds}/{branching}")
 
-    # the TPU kernel's two special cases: a window wider than its 2048-key
-    # tile, and every query in one tile (its capacity overflow)
+    # the TPU kernel's two special cases (a window wider than its 2048-key
+    # tile; every query in one tile), then windows that need not hold LB:
+    # empty, hi < lo, hi >= n, lo > n-1, placed at random
     rng = np.random.default_rng(seed)
     keys = sosd.generate("amzn", n, seed=seed)
     data = encode_keys(keys, dev)
@@ -152,21 +247,36 @@ def phase_kernels_vs_plain(dev, seed, log, errs):
     q = keys[rng.integers(0, n, m)]
     lb = np.searchsorted(keys, q)
     cases["wide_window"] = (q, np.maximum(lb - rng.integers(0, width - 1, m),
-                                          0), width)
+                                          0), None, width)
     q = keys[rng.integers(0, 2_048, m)]
     lb = np.searchsorted(keys, q)
-    cases["one_tile"] = (q, np.maximum(lb - 10, 0), 64)
-    for case, (q, lo, width) in cases.items():
+    cases["one_tile"] = (q, np.maximum(lb - 10, 0), None, 64)
+    q = np.concatenate([keys[rng.integers(0, n, m // 2)],
+                        rng.integers(0, 2**64 - 1, m - m // 2,
+                                     dtype=np.uint64)])
+    lo = rng.integers(-5, n + 5, m)
+    cases["windows_anywhere"] = (q, lo, lo + rng.integers(-3, 303, m), 300)
+    for case, (q, lo, hi, width) in cases.items():
         qt = encode_keys(q, dev)
-        lo_t = torch.from_numpy(lo.astype(np.int32)).to(dev)
-        pos = bops.lower_bound_windows(data, qt, lo_t, width)
-        ppos = bops.lower_bound_windows_plain(data, qt, lo_t, width)
+        lo_t = torch.from_numpy(lo).to(dev)
+        hi_t = None if hi is None else \
+            torch.from_numpy(hi.astype(np.int32)).to(dev)
+        pos = bops.lower_bound_windows(data, qt, lo_t, width, hi_t)
+        ppos = bops.lower_bound_windows_plain(data, qt, lo_t, width, hi_t)
         e1 = diff(pos, ppos)
         errs["bounded_search"] = max(errs["bounded_search"], e1)
-        exact = bool((pos.cpu().numpy() == np.searchsorted(keys, q)).all())
+        got = pos.cpu().numpy()
+        if hi is None:
+            exact = bool((got == np.searchsorted(keys, q)).all())
+        else:   # lo plus the count of keys below q inside the window
+            start = np.clip(lo, 0, n - 1)
+            last = np.minimum(np.minimum(hi, start + width - 1), n)
+            real = np.clip(np.minimum(last, n - 1) - start + 1, 0, None)
+            exact = bool((got == start + np.clip(
+                np.searchsorted(keys, q) - start, 0, real)).all())
         emit({"phase": "kernels_vs_plain", "case": case, "n": n, "m": m,
-              "max_width": width, "bounded_search_max_abs_err": e1,
-              "lb_exact": exact}, log)
+              "max_width": width, "per_query_hi": hi is not None,
+              "bounded_search_max_abs_err": e1, "lb_exact": exact}, log)
         check(e1 == 0 and exact, f"bounded_search vs plain on {case}")
 
 
@@ -191,9 +301,12 @@ def phase_main_path(dev, dataset, args, log):
     qt = encode_keys(queries, dev)
     del queries
 
+    counters = {"rmi_lookup": rmi_kernel.launch_lookup,
+                "rmi_bounds": rmi_kernel.launch_bounds,
+                "bounded_search": bs_kernel.launch}
     torch.cuda.reset_peak_memory_stats()
-    rmi_kernel.launch.launches = 0
-    bs_kernel.launch.launches = 0
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     build = spec.build(spec.IndexSpec("rmi", {"branching": BRANCHING}), keys,
                        device=dev)
@@ -208,8 +321,10 @@ def phase_main_path(dev, dataset, args, log):
           "host_oracle_s": t_oracle}, log)
 
     runs = [("cuda", True), ("cuda", False), ("torch", None), ("cuda", True)]
-    e2e = {}
+    calls = QUERIES // BATCH + 1                  # a warm-up batch, then 10
+    e2e, per_run = {}, []
     for backend, fused in runs:
+        before = {k: c.launches for k, c in counters.items()}
         t0 = time.perf_counter()
         fn = p.compile(backend, fused=fused)
         torch.cuda.synchronize()
@@ -224,56 +339,137 @@ def phase_main_path(dev, dataset, args, log):
         exact = bool(got.shape == lb.shape and (got == lb).all())
         label = backend if fused is None else \
             f"{backend}_{'fused' if fused else 'unfused'}"
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
         rec = {"phase": "main_path", "dataset": dataset, "backend": label,
                "last_mile": p.last_mile if backend == "torch" else "kernel",
                "compile_s": t_compile, "seconds": dt,
                "ns_per_lookup": dt / QUERIES * 1e9,
-               "lookups_per_s": QUERIES / dt, "exact": exact}
+               "lookups_per_s": QUERIES / dt, "exact": exact,
+               "launches": launched}
         e2e.setdefault(label, rec)
+        per_run.append({"backend": label, **launched})
         emit(rec, log)
         check(exact, f"main path {dataset}/{label} != np.searchsorted")
-    launches = {"rmi_lookup": rmi_kernel.launch.launches,
-                "bounded_search": bs_kernel.launch.launches}
+        want = {"cuda_fused": {"rmi_lookup": calls},
+                "cuda_unfused": {"bounded_search": calls}}.get(label, {})
+        check(launched == {k: want.get(k, 0) for k in counters},
+              f"{dataset}/{label} launched {launched}")
+    launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "main_path_launches", "dataset": dataset, **launches,
+          "calls_per_run": calls, "per_run": per_run,
+          "fused_kernel_launches_per_batch":
+              per_run[0]["rmi_lookup"] / calls,
           "peak_device_bytes": peak}, log)
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the {dataset} main path")
-    return p, qt, launches, e2e
+    for name in ("rmi_lookup", "bounded_search"):
+        check(launches[name] > 0,
+              f"{name} was not launched on the {dataset} main path")
+    return p, qt, lb, launches, e2e
 
 
-def window_spread(lo, hi, max_err: int) -> dict:
-    """Spread of the fused path's window widths ``hi - lo + 1`` over one
-    batch, and the trip counts a search sized per query, or per warp of 32
-    neighbouring queries, would need beside the ``lb_steps(max_err)`` that
-    the bounded-search kernel runs for every query."""
+def phase_profile(p, qt, dataset, log, trace: bool):
+    """The fused path's 10 batches on the host clock against 10 times the
+    fused kernel's CUDA-event time, which gives the device's idle share;
+    with ``trace``, also a torch.profiler window over the same 10 batches:
+    device time by kernel, device events a batch, and the idle share it
+    shows.  Only the first cell asks for the trace: on an H100 the first
+    profiler session of a process recorded all 10 kernels, a second one
+    3 of its 10, and one after a traced warm-up cycle none."""
     import torch
-    from repro_torch.kernels.common import lb_steps
+    fn = p.compile("cuda")
+    batches = QUERIES // BATCH
 
-    w = (hi.long() - lo.long() + 1).clamp(min=1)
-    ws = torch.sort(w).values
+    def window():
+        t0 = time.perf_counter()
+        for i in range(0, QUERIES, BATCH):
+            fn(qt[i:i + BATCH])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    window()
+    plain_wall_us = window()
+    kernel_us = cuda_ms(lambda: fn(qt[:BATCH])) * 1e3
+    rec = {"phase": "profile", "dataset": dataset, "backend": "cuda_fused",
+           "batches": batches, "unprofiled_wall_us": plain_wall_us,
+           "kernel_us_per_batch_events": kernel_us,
+           "idle_share_unprofiled": 1 - batches * kernel_us / plain_wall_us}
+    if not trace:
+        emit(rec, log)
+        return rec
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_us = window()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:     # a measurement, not a check: report it
+        rec["error"] = f"{type(exc).__name__}: {exc}"
+        emit(rec, log)
+        return rec
+    by_name = {}
+    for e in device:
+        d = by_name.setdefault(e.name, {"count": 0, "total_us": 0.0})
+        d["count"] += 1
+        d["total_us"] += e.time_range.elapsed_us()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:                           # union of busy intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    rec.update({
+        "profiled_wall_us": wall_us, "device_events": len(device),
+        "device_events_per_batch": len(device) / batches,
+        "by_kernel": by_name, "device_busy_us": busy,
+        "device_span_us": span,
+        "idle_share_of_wall": (1 - busy / wall_us) if device else None,
+        "idle_share_of_span": (1 - busy / span) if span else None})
+    if not device:
+        rec["note"] = "the profiler showed no device time"
+    emit(rec, log)
+    return rec
+
+
+def window_spread(count, probes, max_err: int, n: int) -> dict:
+    """Spread of one batch's clipped window widths, and the probes the
+    last mile makes: a query on average, and a warp of 32 (its slowest
+    lane) with the queries in batch order and regrouped by trip class
+    inside each block of 256, as the kernel does (trip counts 31 and 32
+    share a class)."""
+    import torch
+    ws = torch.sort(count).values
     m = ws.numel()
-
-    def steps(x):  # lb_steps elementwise
-        return torch.ceil(torch.log2((x.double() + 1).clamp(min=2))) + 1
-
-    warp_max = w[: m // 32 * 32].view(-1, 32).max(dim=1).values
+    k = m // 256 * 256
+    cls = probes[:k].clamp(max=31).view(-1, 256)
+    order = torch.sort(cls, dim=1, stable=True).indices
+    regrouped = torch.gather(probes[:k].view(-1, 256), 1, order)
     return {
         **{f"p{int(f * 100)}": int(ws[min(int(f * m), m - 1)])
            for f in (0.5, 0.9, 0.99)},
         "max": int(ws[-1]), "max_err": max_err,
-        "share_above_2048": float((w > 2048).double().mean()),
+        "share_above_2048": float((count > 2048).double().mean()),
         "share_above_max_err_over_8": float(
-            (w > max_err // 8).double().mean()),
-        "lb_steps_max_err": lb_steps(max_err),
-        "mean_lb_steps_per_query": float(steps(w).mean()),
-        "mean_lb_steps_per_warp": float(steps(warp_max).mean()),
+            (count > max_err // 8).double().mean()),
+        "probes_batch_width": min(max_err, n + 1).bit_length(),
+        "mean_probes_per_query": float(probes.double().mean()),
+        "mean_probes_per_warp": float(
+            probes[:k].view(-1, 32).max(dim=1).values.double().mean()),
+        "mean_probes_per_warp_regrouped": float(
+            regrouped.reshape(-1, 32).max(dim=1).values.double().mean()),
     }
 
 
-def phase_timings(p, qt, dataset, launches, errs, log):
+def phase_timings(p, qt, dataset, launches, errs, alt, log):
     """Per-kernel device time at the main path's shapes, beside the plain
-    version, the one-call library yardstick, and the bound."""
+    version, the one-call library yardstick, and the bound; the last
+    mile's three designs and the two stage-2 layouts in turns."""
     import torch
     from repro_torch.kernels.bounded_search import kernel as bs_kernel
     from repro_torch.kernels.bounded_search import ops as bops
@@ -282,56 +478,152 @@ def phase_timings(p, qt, dataset, launches, errs, log):
     from repro_torch.kernels.rmi_lookup import ops as rops
 
     st = p._cache["_rmi_f32_state"]
-    data = p.data
+    data, n, W = p.data, p.data.shape[0], st.max_err
     q0 = qt[:BATCH].contiguous()
     m = q0.shape[0]
-    lo, hi = rmi_kernel.launch(st, q0)
-    lo_only, no_hi = rmi_kernel.launch(st, q0, with_hi=False)
+    lo, hi = rmi_kernel.launch_bounds(st, q0)
     plo, phi = rops.rmi_bounds_plain(st, q0)
-    steps = lb_steps(st.max_err)
-    pos = bs_kernel.launch(data, q0, lo, st.max_err, steps)
-    ppos = bops.lower_bound_windows_plain(data, q0, lo, st.max_err)
+    lo3, hi3 = alt.three_arrays(st, q0)
+    b1 = {"batch_width": lambda: bs_kernel.launch(data, q0, lo, W),
+          "per_query": lambda: bs_kernel.launch(data, q0, lo, W, hi),
+          "per_query_regrouped": lambda: alt.regrouped(data, q0, lo, hi, W)}
+    outs = {k: f() for k, f in b1.items()}
+    plain = bops.lower_bound_windows_plain(data, q0, lo, W, hi)
+    rank = rmi_kernel.launch_lookup(st, data, q0)
+    rank3 = alt.lookup_three_arrays(st, data, q0)
+    prank = rops.rmi_lookup_plain(st, data, q0)
     torch.cuda.synchronize()
     check(torch.equal(lo, plo) and torch.equal(hi, phi)
-          and torch.equal(lo_only, lo) and no_hi is None,
+          and torch.equal(lo3, lo) and torch.equal(hi3, hi),
+          f"rmi_bounds vs plain at {dataset} main-path shapes")
+    for k, out in outs.items():
+        check(torch.equal(out, plain),
+              f"bounded_search ({k}) vs plain at {dataset} main-path shapes")
+    check(torch.equal(rank, prank) and torch.equal(rank3, prank),
           f"rmi_lookup vs plain at {dataset} main-path shapes")
-    check(torch.equal(pos, ppos),
-          f"bounded_search vs plain at {dataset} main-path shapes")
+    errs["bounded_search"] = max(errs["bounded_search"],
+                                 diff(outs[B1_KEPT], plain))
+    errs["rmi_lookup"] = max(errs["rmi_lookup"], diff(rank, prank))
+    errs["rmi_bounds"] = max(errs["rmi_bounds"], diff(lo, plo),
+                             diff(hi, phi))
 
-    kernels = []
-    # the fused path's B2 writes lo only (4 bytes a query)
-    b2_bound, b2_by = bound(m * (8 + 4) + st.branching * 12, m * 12)
-    kernels.append({
-        "name": "rmi_lookup", "route": "cuda",
-        "source": KERNEL_SOURCES["rmi_lookup"][0],
-        "replaces": KERNEL_SOURCES["rmi_lookup"][1],
-        "launches": launches["rmi_lookup"],
-        "max_abs_err": errs["rmi_lookup"],
-        "ms": cuda_ms(lambda: rmi_kernel.launch(st, q0, with_hi=False)),
-        "plain_ms": cuda_ms(lambda: rops.rmi_bounds_plain(st, q0)),
-        "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None})
-    b1_bound, b1_by = bound(m * (8 + 4 + 4) + m * max(steps - 2, 0) * 32,
-                            m * steps * 6)
-    kernels.append({
+    # what these inputs need: each query's own probes, every probe after
+    # the first two a 32-byte sector
+    _, count = bops.clip_windows(n, lo, W, hi)
+    probes = bops.window_probes(count)
+    sectors = float((probes - 2).clamp(min=0).sum()) * 32
+    n_probes = float(probes.sum())
+    steps = lb_steps(W)           # the batch-width design's formula
+    bounds = {
+        "batch_width": bound(m * (8 + 4 + 4) + m * max(steps - 2, 0) * 32,
+                             m * steps * 6),
+        "per_query": bound(m * (8 + 4 + 4 + 4) + sectors, n_probes * 6),
+        "per_query_regrouped": bound(m * (8 + 4 + 4 + 4) + sectors,
+                                     n_probes * 6),
+        "rmi_lookup": bound(m * (8 + 8) + st.branching * 16 + sectors,
+                            m * 12 + n_probes * 6),
+        "rmi_lookup_three_arrays": bound(
+            m * (8 + 8) + st.branching * 12 + sectors,
+            m * 12 + n_probes * 6),
+        "rmi_bounds": bound(m * (8 + 8) + st.branching * 16, m * 12),
+        "rmi_bounds_three_arrays": bound(m * (8 + 8) + st.branching * 12,
+                                         m * 12),
+    }
+
+    # in turns: a, b, c, c, b, a; then each stage-2 layout against the
+    # other as packed, three, three, packed, standalone and fused
+    times = {k: [] for k in b1}
+    for k in [*B1_DESIGNS, *reversed(B1_DESIGNS)]:
+        times[k].append(cuda_ms(b1[k]))
+    b2 = {"rmi_bounds": lambda: rmi_kernel.launch_bounds(st, q0),
+          "rmi_bounds_three_arrays": lambda: alt.three_arrays(st, q0),
+          "rmi_lookup": lambda: rmi_kernel.launch_lookup(st, data, q0),
+          "rmi_lookup_three_arrays": lambda: alt.lookup_three_arrays(
+              st, data, q0)}
+    for packed in ("rmi_bounds", "rmi_lookup"):
+        three = f"{packed}_three_arrays"
+        for k in (packed, three, three, packed):
+            times.setdefault(k, []).append(cuda_ms(b2[k]))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    library_ms = cuda_ms(lambda: torch.searchsorted(data, q0))
+
+    kernels = [{
         "name": "bounded_search", "route": "cuda",
         "source": KERNEL_SOURCES["bounded_search"][0],
         "replaces": KERNEL_SOURCES["bounded_search"][1],
         "launches": launches["bounded_search"],
         "max_abs_err": errs["bounded_search"],
-        "ms": cuda_ms(lambda: bs_kernel.launch(data, q0, lo, st.max_err,
-                                               steps)),
+        "ms": ms[B1_KEPT],
         "plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
-            data, q0, lo, st.max_err)),
-        "bound_ms": b1_bound, "bound_by": b1_by,
-        "library_ms": cuda_ms(lambda: torch.searchsorted(data, q0))})
+            data, q0, lo, W, hi)),
+        "bound_ms": bounds[B1_KEPT][0], "bound_by": bounds[B1_KEPT][1],
+        "library_ms": library_ms, "design": B1_KEPT,
+        "designs_ms": {k: ms[k] for k in B1_DESIGNS},
+        "designs_bound_ms": {k: bounds[k][0] for k in B1_DESIGNS},
+    }, {
+        "name": "rmi_lookup", "route": "cuda",
+        "source": KERNEL_SOURCES["rmi_lookup"][0],
+        "replaces": KERNEL_SOURCES["rmi_lookup"][1],
+        "launches": launches["rmi_lookup"],
+        "max_abs_err": max(errs["rmi_lookup"], errs["rmi_bounds"]),
+        "ms": ms["rmi_lookup"],
+        "plain_ms": cuda_ms(lambda: rops.rmi_lookup_plain(st, data, q0)),
+        "bound_ms": bounds["rmi_lookup"][0],
+        "bound_by": bounds["rmi_lookup"][1],
+        "library_ms": library_ms,
+        "three_arrays_ms": ms["rmi_lookup_three_arrays"],
+        "three_arrays_bound_ms": bounds["rmi_lookup_three_arrays"][0],
+        "rmi_bounds_ms": ms["rmi_bounds"],
+        "rmi_bounds_three_arrays_ms": ms["rmi_bounds_three_arrays"],
+        "rmi_bounds_plain_ms": cuda_ms(lambda: rops.rmi_bounds_plain(st,
+                                                                     q0)),
+        "rmi_bounds_bound_ms": bounds["rmi_bounds"][0],
+        "rmi_bounds_three_arrays_bound_ms":
+            bounds["rmi_bounds_three_arrays"][0],
+    }]
     emit({"phase": "timings", "dataset": dataset, "batch": m,
-          "branching": st.branching, "lb_steps": steps,
-          "rmi_lookup_with_hi_ms": cuda_ms(lambda: rmi_kernel.launch(st, q0)),
-          "window": window_spread(lo, hi, st.max_err),
-          "kernels": {k["name"]: {f: k[f] for f in (
-              "launches", "ms", "plain_ms", "bound_ms", "library_ms")}
-              for k in kernels}}, log)
+          "branching": st.branching, "max_err": W,
+          "readings_ms": times, "probes": n_probes,
+          "sector_bytes": sectors,
+          "window": window_spread(count, probes, W, n),
+          "kernels": {k["name"]: {f: v for f, v in k.items()
+                                  if f not in ("route", "source",
+                                               "replaces")}
+                      for k in kernels}}, log)
     return kernels
+
+
+def phase_e2e_designs(p, qt, lb, dataset, alt, log):
+    """The fused path end to end, in turns with the two-launch path it
+    replaced (stage 2 from three arrays writing lo alone, the last mile
+    over the batch's widest window, then the int64 cast), same queries,
+    same clock; every answer held against np.searchsorted."""
+    import torch
+    from repro_torch.kernels.bounded_search import kernel as bs_kernel
+
+    st = p._cache["_rmi_f32_state"]
+    data, W = p.data, st.max_err
+
+    def two_launch(q):
+        lo, _ = alt.three_arrays(st, q, with_hi=False)
+        return bs_kernel.launch(data, q, lo, W).to(torch.int64)
+
+    fns = {"cuda_fused": p.compile("cuda"), "two_launch": two_launch}
+    ns = {k: [] for k in fns}
+    for label in ("cuda_fused", "two_launch", "two_launch", "cuda_fused"):
+        fn = fns[label]
+        fn(qt[:BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(qt[i:i + BATCH]) for i in range(0, QUERIES, BATCH)]
+        torch.cuda.synchronize()
+        ns[label].append((time.perf_counter() - t0) / QUERIES * 1e9)
+        got = torch.cat(outs).cpu().numpy()
+        check(bool((got == lb).all()),
+              f"{dataset}/{label} end to end != np.searchsorted")
+    emit({"phase": "e2e_designs", "dataset": dataset,
+          "ns_per_lookup": ns}, log)
+    return ns
 
 
 def main(argv=None) -> int:
@@ -362,14 +654,19 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__}, log)
     build_s = phase_build(log)
-    errs = {"rmi_lookup": 0, "bounded_search": 0}
+    alt = Alternatives()
+    errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
     cells = {}
     for ds in MAIN_DATASETS:
-        p, qt, launches, e2e = phase_main_path(dev, ds, args, log)
-        cells[ds] = {"end_to_end": e2e,
-                     "kernels": phase_timings(p, qt, ds, launches, errs, log)}
-        del p, qt
+        p, qt, lb, launches, e2e = phase_main_path(dev, ds, args, log)
+        profile = phase_profile(p, qt, ds, log,
+                                trace=ds == MAIN_DATASETS[0])
+        kernels = phase_timings(p, qt, ds, launches, errs, alt, log)
+        designs = phase_e2e_designs(p, qt, lb, ds, alt, log)
+        cells[ds] = {"end_to_end": e2e, "profile": profile,
+                     "kernels": kernels, "e2e_designs": designs}
+        del p, qt, lb
         gc.collect()
         torch.cuda.empty_cache()
     kernels = cells[MAIN_DATASETS[0]]["kernels"]

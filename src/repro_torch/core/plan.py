@@ -15,7 +15,7 @@ A plan is a `bounds` stage (the index's state dict, a predict function
   ``"cuda"``   the hand-written kernels: the bounded-search kernel
                consuming the plan's bounds (any index), or, where an index
                registers one, a fused whole-plan executor (RMI: the
-               ``rmi_lookup`` kernel, then the bounded-search kernel).  For
+               ``rmi_lookup`` kernel, bounds and search in one launch).  For
                a plan whose data lies on the CPU each kernel wrapper takes
                its plain version, so this backend runs everywhere too.
 
@@ -38,9 +38,9 @@ __all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "lower",
 #: The backend axis every lookup consumer can select on.
 BACKENDS = ("torch", "cuda")
 
-#: index name -> plan -> fn(q) -> positions.  A fused executor replaces
-#: the whole predict+search pipeline with one kernel path; registered per
-#: index family, used by backend="cuda".
+#: index name -> plan -> fn(q) -> int64 positions.  A fused executor
+#: replaces the whole predict+search pipeline with one kernel path;
+#: registered per index family, used by backend="cuda".
 FUSED_LOWERERS: Dict[str, Callable] = {}
 
 
@@ -99,18 +99,17 @@ class LookupPlan:
                 if self.fused is None:
                     raise ValueError(
                         f"plan {self.name!r} has no fused kernel executor")
-                inner = self.fused(self)
-                return lambda q: inner(q).to(torch.int64)
+                return self.fused(self)
 
             from repro_torch.kernels.bounded_search.ops import \
                 lower_bound_windows
 
             def run_cuda(q):
-                lo, _hi = predict(state, q)
-                # window precondition lo <= LB < lo + max_err holds by the
-                # bounds contract (LB <= hi <= lo + max_err - 1)
+                lo, hi = predict(state, q)
+                # each query searches its own [lo, hi], which holds LB by
+                # the bounds contract
                 return lower_bound_windows(
-                    data, q, lo, max_width=max_err).to(torch.int64)
+                    data, q, lo, max_width=max_err, hi=hi).to(torch.int64)
 
             return run_cuda
 
@@ -169,10 +168,10 @@ def lower(build: base.IndexBuild, data,
 
 @register_fused("rmi")
 def _rmi_fused(plan: LookupPlan) -> Callable:
-    """Whole-plan executor for RMI: the fused f32 inference kernel + the
-    bounded last-mile kernel.  The f32 state is refit from the plan's
-    keys with its error table verified through the kernel's own
-    arithmetic, so the result is still the exact LB rank."""
+    """Whole-plan executor for RMI: the fused f32 lookup kernel (bounds
+    and last mile in one launch), returning int64 ranks.  The f32 state is
+    refit from the plan's keys with its error table verified through the
+    kernel's own arithmetic, so the result is still the exact LB rank."""
     from repro_torch.kernels.common import decode_keys
     from repro_torch.kernels.rmi_lookup import ops as rops
 
@@ -185,7 +184,4 @@ def _rmi_fused(plan: LookupPlan) -> Callable:
         plan._cache["_rmi_f32_state"] = st
     data = plan.data
 
-    def run(q):
-        return rops.rmi_lookup(st, data, q)
-
-    return run
+    return lambda q: rops.rmi_lookup(st, data, q)

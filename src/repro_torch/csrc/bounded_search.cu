@@ -2,93 +2,86 @@
 //
 // Replaces the TPU kernel src/repro/kernels/bounded_search/kernel.py::
 // lower_bound_kernel (driven by ops.py::lower_bound_windows): for sorted keys
-// data[n] and a window start lo per query with LB in [lo, lo + max_width),
-// return the exact int32 LB = lower_bound(data, q).
+// data[n] and a window per query, return the int32 lo + (count of keys below
+// q in the window), which is the exact LB = lower_bound(data, q) wherever the
+// window holds LB.  The window is [clip(lo, 0, n-1), min(hi, lo + max_width
+// - 1, n)], position n as +inf; without hi it is [lo, lo + max_width).
 //
-// Keys arrive in the port's codec: uint64 with the sign bit flipped, stored
-// as int64, so a signed compare is the uint64 compare.
+// What bounds it on this card: 32-byte sectors.  Each query reads 8 + lo
+// (+ hi) bytes and writes 4, then makes ceil(log2(w + 1)) dependent probes
+// for its own window width w into a 1.6 GB array (200M keys); the first
+// probes of neighbouring queries share no sector, so each costs a sector
+// from HBM or L2.
 //
-// What bounds it on this card: memory latency and sectors.  Each query reads
-// 8 + lo bytes and writes 4, then makes lb_steps(max_width) dependent probes
-// into a 1.6 GB array (200M keys); the first probes of neighbouring queries
-// share no sector, so each costs a 32-byte sector from HBM or L2.
-//
-// What the design does about it: the TPU binned queries into 2048-key tiles
-// (capacity 256, a trash row, an overflow fallback) only to give VMEM static
-// blocks; none of that is carried over.  One thread per query runs the
-// branchless search straight over global memory: no shared memory, no sort,
-// one code path for every width (the TPU's wide-window and overflow
-// fallbacks included), and enough threads in flight (m = 1M) to hide the
-// probe latency.  The loop mirrors the plain version step for step
-// (fixed trip count, floor division, clip, position n as +inf), so the two
-// agree bit for bit on every input, not only where the window holds LB.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it: every query runs its own trip count, not
+// the batch's widest window, so a narrow window costs few probes.  A lane
+// whose search has ended is masked off and issues no loads, so a warp that
+// mixes narrow and wide windows costs the sectors of its lanes' own probes:
+// the time follows the batch's total probes, not each warp's widest window.
+// Regrouping a block's queries by trip count first (csrc/timing, timed
+// beside this kernel by chip_smoke.py) evens out each warp's trip counts
+// but did not pay where the windows are widest, so this kernel does not.
+// The TPU binned queries into 2048-key tiles (capacity 256, a trash row, an
+// overflow fallback) only to give VMEM static blocks; none of that is
+// carried over: one thread per query searches global memory, one code path
+// for every width.  The loop mirrors the plain version step for
+// step (floor division, clip, position n as +inf, stop at an empty window),
+// so the two agree bit for bit on every input.
+#include <climits>
+
+#include "lookup.cuh"
 
 namespace {
 
-template <typename LoT>
-__global__ void bounded_search_kernel(const long long* __restrict__ data,
-                                      long long n,
-                                      const long long* __restrict__ queries,
-                                      const LoT* __restrict__ lo_in,
-                                      int* __restrict__ out, long long m,
-                                      long long max_width, int steps) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+constexpr int kThreads = 256;
+
+template <typename LoT, typename HiT>
+__global__ void __launch_bounds__(kThreads)
+    bounded_search_kernel(const long long* __restrict__ data, long long n,
+                          const long long* __restrict__ queries,
+                          const LoT* __restrict__ lo_in,
+                          const HiT* __restrict__ hi_in, int* __restrict__ out,
+                          long long m, long long max_width) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= m) return;
-  const int n32 = (int)n;
-  // lo clipped to [0, n-1]; the window is [lo, min(lo + max_width, n) - 1]
-  long long lo64 = (long long)lo_in[i];
-  lo64 = lo64 < 0 ? 0 : lo64;
-  lo64 = lo64 > n - 1 ? n - 1 : lo64;
-  long long end = lo64 + max_width;
-  end = end < n ? end : n;
-  int lo = (int)lo64;
-  int count = (int)(end - lo64);
-  count = count < 0 ? 0 : count;
-  const long long q = queries[i];
-  for (int s = 0; s < steps; ++s) {
-    const int step = count >> 1;  // floor division, as the plain version
-    const int idx = lo + step;
-    int c = idx < 0 ? 0 : idx;
-    c = c > n32 - 1 ? n32 - 1 : c;
-    const long long probe = __ldg(data + c);
-    const bool right = (probe < q) && (idx < n32);
-    lo = right ? lo + step + 1 : lo;
-    count = right ? count - step - 1 : step;
-  }
-  out[i] = lo;
+  const long long hi = hi_in != nullptr ? (long long)hi_in[i] : LLONG_MAX;
+  const lookup::Window w =
+      lookup::clip_window((long long)lo_in[i], hi, n, max_width);
+  out[i] = lookup::window_lower_bound(data, (int)n, queries[i], w);
 }
 
-template <typename LoT>
+template <typename LoT, typename HiT>
 int launch(const void* data, long long n, const void* queries, const void* lo,
-           void* out, long long m, long long max_width, int steps,
+           const void* hi, void* out, long long m, long long max_width,
            void* stream) {
-  const int threads = 256;
-  const long long blocks = (m + threads - 1) / threads;
-  bounded_search_kernel<LoT><<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      (const long long*)data, n, (const long long*)queries,
-      (const LoT*)lo, (int*)out, m, max_width, steps);
+  const long long blocks = (m + kThreads - 1) / kThreads;
+  bounded_search_kernel<LoT, HiT>
+      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const long long*)data, n, (const long long*)queries,
+          (const LoT*)lo, (const HiT*)hi, (int*)out, m, max_width);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" {
-
-// lo as int32 (RMI's fused bounds) or int64 (a plan's generic bounds).
-int bounded_search_i32(const void* data, long long n, const void* queries,
-                       const void* lo, void* out, long long m,
-                       long long max_width, int steps, void* stream) {
-  return launch<int>(data, n, queries, lo, out, m, max_width, steps, stream);
+// lo and hi are int32 or int64 (lo_bytes, hi_bytes: 4 or 8); hi may be null.
+extern "C" int bounded_search(const void* data, long long n,
+                              const void* queries, const void* lo,
+                              int lo_bytes, const void* hi, int hi_bytes,
+                              void* out, long long m, long long max_width,
+                              void* stream) {
+  if (hi == nullptr) hi_bytes = lo_bytes;
+  if (lo_bytes == 4 && hi_bytes == 4)
+    return launch<int, int>(data, n, queries, lo, hi, out, m, max_width,
+                            stream);
+  if (lo_bytes == 4 && hi_bytes == 8)
+    return launch<int, long long>(data, n, queries, lo, hi, out, m, max_width,
+                                  stream);
+  if (lo_bytes == 8 && hi_bytes == 4)
+    return launch<long long, int>(data, n, queries, lo, hi, out, m, max_width,
+                                  stream);
+  if (lo_bytes == 8 && hi_bytes == 8)
+    return launch<long long, long long>(data, n, queries, lo, hi, out, m,
+                                        max_width, stream);
+  return (int)cudaErrorInvalidValue;
 }
-
-int bounded_search_i64(const void* data, long long n, const void* queries,
-                       const void* lo, void* out, long long m,
-                       long long max_width, int steps, void* stream) {
-  return launch<long long>(data, n, queries, lo, out, m, max_width, steps,
-                           stream);
-}
-
-}  // extern "C"

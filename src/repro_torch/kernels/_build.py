@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface, which
 `load` opens with ``ctypes``.  Libraries live in ``build/repro_torch_kernels/``
-at the root of the checkout, keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.  There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+at the root of the checkout, keyed by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  There is no fallback: a missing
+``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -41,14 +42,17 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, dict]:
-    """Compile every source not yet built, in parallel; return BUILD_INFO."""
+def build_all(sources: Iterable[Path] = ()) -> Dict[str, dict]:
+    """Compile every ``csrc/*.cu`` source, and any further ``sources``,
+    not yet built, in parallel; return BUILD_INFO."""
     with _LOCK:
         pending = []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted({*CSRC.glob("*.cu"), *map(Path, sources)}):
             out = _target(src)
             if src.stem in BUILD_INFO:
                 continue

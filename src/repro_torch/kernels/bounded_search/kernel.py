@@ -8,49 +8,55 @@ anything else; choosing between the kernel and its plain version is
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_void_p]
 
 
 def _lib():
     lib = _build.load("bounded_search")
-    for fn in (lib.bounded_search_i32, lib.bounded_search_i64):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    lib.bounded_search.argtypes = _ARGTYPES
+    lib.bounded_search.restype = ctypes.c_int
     return lib
 
 
 def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
-           max_width: int, steps: int) -> torch.Tensor:
-    """int32 LB per query over ``[clip(lo, 0, n-1), min(lo+max_width, n))``."""
+           max_width: int, hi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 ``lo + #(keys < q)`` over each query's window
+    ``[clip(lo, 0, n-1), min(hi, lo + max_width - 1, n)]``."""
     n, m = data.shape[0], queries.shape[0]
-    for name, t in (("data", data), ("queries", queries), ("lo", lo)):
+    named = [("data", data), ("queries", queries), ("lo", lo)]
+    if hi is not None:
+        named.append(("hi", hi))
+    for name, t in named:
         if not t.is_cuda or t.device != data.device:
             raise ValueError(f"{name} must be on the data's CUDA device")
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous vector")
     if data.dtype != torch.int64 or queries.dtype != torch.int64:
         raise ValueError("data and queries must be encoded int64 keys")
-    if lo.dtype not in (torch.int32, torch.int64) or lo.shape[0] != m:
-        raise ValueError("lo must be int32 or int64, one per query")
+    for name, t in named[2:]:
+        if t.dtype not in (torch.int32, torch.int64) or t.shape[0] != m:
+            raise ValueError(f"{name} must be int32 or int64, one per query")
     if not 0 < n < 2 ** 31:
         raise ValueError(f"n={n} must be in [1, 2^31)")
     out = torch.empty(m, dtype=torch.int32, device=data.device)
     if m == 0:
         return out
-    lib = _lib()
-    fn = lib.bounded_search_i32 if lo.dtype == torch.int32 \
-        else lib.bounded_search_i64
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(data.data_ptr(), n, queries.data_ptr(), lo.data_ptr(),
-                out.data_ptr(), m, int(max_width), int(steps), stream)
+        rc = _lib().bounded_search(
+            data.data_ptr(), n, queries.data_ptr(), lo.data_ptr(),
+            lo.element_size(), hi.data_ptr() if hi is not None else None,
+            hi.element_size() if hi is not None else 0, out.data_ptr(), m,
+            int(max_width), stream)
     if rc != 0:
         raise RuntimeError(f"bounded_search launch failed: CUDA error {rc}")
     launch.launches += 1

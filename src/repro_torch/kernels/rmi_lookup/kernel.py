@@ -1,9 +1,10 @@
-"""ctypes binding of ``csrc/rmi_lookup.cu`` (fused f32 RMI bounds).
+"""ctypes binding of ``csrc/rmi_lookup.cu`` (f32 RMI bounds, and the
+whole lookup fused into one launch).
 
-`launch` is the only place the kernel starts, and counts its launches in
-``launch.launches``.  It checks what the kernel takes and raises on
-anything else; choosing between the kernel and its plain version is
-`ops.rmi_bounds`'s job.
+`launch_bounds` and `launch_lookup` are the only places the two entries
+start, and each counts its launches in its own ``.launches``.  They check
+what the kernel takes and raise on anything else; choosing between a
+kernel and its plain version is `ops`'s job.
 """
 from __future__ import annotations
 
@@ -13,52 +14,83 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_MODEL = [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_int]
 
 
 def _lib():
     lib = _build.load("rmi_lookup")
-    lib.rmi_bounds.argtypes = _ARGTYPES
-    lib.rmi_bounds.restype = ctypes.c_int
+    lib.rmi_bounds.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_MODEL,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p]
+    lib.rmi_lookup.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_MODEL,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_longlong, ctypes.c_void_p,
+                               ctypes.c_void_p]
+    lib.rmi_bounds.restype = lib.rmi_lookup.restype = ctypes.c_int
     return lib
 
 
-def launch(state, queries: torch.Tensor, with_hi: bool = True):
-    """(lo, hi) int32 bounds for encoded ``queries`` under an
-    `ops.F32RMIState` whose tables lie on the queries' CUDA device.
-    ``with_hi=False`` returns ``(lo, None)``: the kernel writes no hi."""
+def model_args(state) -> tuple:
+    """The f32 model constants in the order the C entries take them."""
+    return (state.c0, state.c1, state.x0, state.inv_range, state.scale_f32,
+            state.hi_clamp, state.branching, state.n)
+
+
+def _check(state, queries: torch.Tensor) -> None:
     dev = queries.device
     if not queries.is_cuda or queries.dtype != torch.int64 \
             or queries.dim() != 1 or not queries.is_contiguous():
         raise ValueError("queries must be a contiguous int64 CUDA vector")
-    for name, t, dt in (("a2", state.a2, torch.float32),
-                        ("b2", state.b2, torch.float32),
-                        ("err", state.err, torch.int32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
-                or t.shape != (state.branching,):
-            raise ValueError(f"state.{name} must be a contiguous {dt} "
-                             f"[{state.branching}] on {dev}")
-    m = queries.shape[0]
+    t = state.table
+    if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous() \
+            or t.shape != (state.branching, 4) or t.data_ptr() % 16:
+        raise ValueError(f"state.table must be a contiguous, 16-byte aligned "
+                         f"int32 [{state.branching}, 4] on {dev}")
+
+
+def launch_bounds(state, queries: torch.Tensor):
+    """(lo, hi) int32 bounds for encoded ``queries`` under an
+    `ops.F32RMIState` whose table lies on the queries' CUDA device."""
+    _check(state, queries)
+    dev, m = queries.device, queries.shape[0]
     lo = torch.empty(m, dtype=torch.int32, device=dev)
-    hi = torch.empty(m, dtype=torch.int32, device=dev) if with_hi else None
+    hi = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return lo, hi
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().rmi_bounds(
-            queries.data_ptr(), m, state.c0, state.c1, state.x0,
-            state.inv_range, state.scale_f32, state.hi_clamp,
-            state.branching, state.n, state.a2.data_ptr(),
-            state.b2.data_ptr(), state.err.data_ptr(), lo.data_ptr(),
-            hi.data_ptr() if with_hi else None, stream)
+            queries.data_ptr(), m, *model_args(state),
+            state.table.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
-    launch.launches += 1
+        raise RuntimeError(f"rmi_bounds launch failed: CUDA error {rc}")
+    launch_bounds.launches += 1
     return lo, hi
 
 
-launch.launches = 0
+def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
+    """int64 LB rank of each encoded query: the bounds, then the search
+    over each query's window, in one launch."""
+    _check(state, queries)
+    if not data.is_cuda or data.device != queries.device \
+            or data.dtype != torch.int64 or data.dim() != 1 \
+            or not data.is_contiguous() or data.shape[0] != state.n:
+        raise ValueError(f"data must be the state's {state.n} encoded keys, "
+                         f"contiguous on {queries.device}")
+    dev, m = queries.device, queries.shape[0]
+    out = torch.empty(m, dtype=torch.int64, device=dev)
+    if m == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _lib().rmi_lookup(
+            queries.data_ptr(), m, *model_args(state),
+            state.table.data_ptr(), data.data_ptr(), state.max_err,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
+    launch_lookup.launches += 1
+    return out
+
+
+launch_bounds.launches = 0
+launch_lookup.launches = 0

@@ -1,15 +1,18 @@
-"""f32 RMI state preparation and the fused lookup pipeline.
+"""f32 RMI state preparation, its bounds, and the whole lookup.
 
 ``prepare_f32_state`` fits a linear/linear RMI in float64 numpy (as the
 reference does) and verifies its stage-2 error table through `ref`'s plain
 torch arithmetic, which ``csrc/rmi_lookup.cu`` reproduces bit for bit
 (``_rn`` intrinsics, no FMA).  The table is therefore valid for the
 kernel, and only for it: it is not the reference's table, whose
-verification ran under XLA's FMA contraction.
+verification ran under XLA's FMA contraction.  The state also packs the
+stage-2 table as 16 bytes a bucket, the layout the kernel reads.
 
-`rmi_bounds` sends a CUDA tensor to the kernel and a CPU tensor to
-`rmi_bounds_plain`; `rmi_lookup` adds the bounded last mile.  The two
-stay two launches, as the reference's `rmi_bounds` + `lower_bound_windows`.
+`rmi_bounds` and `rmi_lookup` send a CUDA tensor to the kernel and a CPU
+tensor to their plain versions.  On the card `rmi_lookup` is one launch,
+the bounds feeding the bounded search in registers; its plain version is
+`rmi_bounds_plain` followed by `lower_bound_windows_plain` over each
+query's ``(lo, hi)``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.bounded_search.ops import lower_bound_windows
+from repro_torch.kernels.bounded_search.ops import lower_bound_windows_plain
 from repro_torch.kernels.common import (bucket_errors, encode_keys,
                                         resolve_device)
 from repro_torch.kernels.rmi_lookup import kernel
@@ -37,6 +40,7 @@ class F32RMIState:
     a2: torch.Tensor        # [B] f32
     b2: torch.Tensor        # [B] f32
     err: torch.Tensor       # [B] int32
+    table: torch.Tensor     # [B, 4] int32: a2 bits, b2 bits, err, 0
     scale: float            # B / n (f64; the arithmetic uses its f32)
     branching: int
     n: int
@@ -53,6 +57,13 @@ class F32RMIState:
 
 
 _infer_u_bkt = _ref.infer_u_bkt
+
+
+def pack_table(a2, b2, err) -> torch.Tensor:
+    """The stage-2 table as one 16-byte record a bucket: ``a2`` and ``b2``
+    as their f32 bits, ``err``, and a zero pad."""
+    return torch.stack([a2.view(torch.int32), b2.view(torch.int32), err,
+                        torch.zeros_like(err)], dim=1).contiguous()
 
 
 def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
@@ -88,6 +99,7 @@ def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
         a2=torch.zeros(1, dtype=torch.float32, device=dev),
         b2=torch.zeros(1, dtype=torch.float32, device=dev),
         err=torch.zeros(1, dtype=torch.int32, device=dev),
+        table=torch.zeros((1, 4), dtype=torch.int32, device=dev),
         scale=scale, branching=B, n=n, max_err=1,
     )
     # bucket assignment + u through the EXACT kernel-side math
@@ -120,25 +132,33 @@ def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
     err_i = (bucket_errors(lambda u, b: _ref.stage2_pred(a2f, b2f, u, b),
                            u_t, bkt_d, bkt_d, n, B) + 1).to(torch.int32)
     return dataclasses.replace(state, a2=a2f, b2=b2f, err=err_i,
+                               table=pack_table(a2f, b2f, err_i),
                                max_err=int(2 * int(err_i.max()) + 2))
 
 
 def rmi_bounds_plain(state: F32RMIState, queries):
-    """The kernel's function as plain torch ops: queries -> (lo, hi)."""
+    """The kernel's bounds as plain torch ops: queries -> (lo, hi)."""
     return _ref.rmi_bounds_ref(state, queries, state.n)
 
 
-def rmi_bounds(state: F32RMIState, queries, with_hi: bool = True):
-    """Fused f32 inference: encoded queries -> int32 (lo, hi), or
-    ``(lo, None)`` with ``with_hi=False``."""
+def rmi_bounds(state: F32RMIState, queries):
+    """f32 inference: encoded queries -> int32 ``(lo, hi)``, hi inclusive."""
     if queries.device.type == "cpu":
-        lo, hi = rmi_bounds_plain(state, queries)
-        return lo, (hi if with_hi else None)
-    return kernel.launch(state, queries, with_hi=with_hi)
+        return rmi_bounds_plain(state, queries)
+    return kernel.launch_bounds(state, queries)
+
+
+def rmi_lookup_plain(state: F32RMIState, data, queries):
+    """The fused kernel's function as plain torch ops: the bounds, then
+    the search over each query's own window, as int64 ranks."""
+    lo, hi = rmi_bounds_plain(state, queries)
+    return lower_bound_windows_plain(data, queries, lo, state.max_err,
+                                     hi).to(torch.int64)
 
 
 def rmi_lookup(state: F32RMIState, data, queries):
-    """End-to-end: fused RMI bounds -> bounded last-mile search -> exact LB.
-    The search covers ``[lo, lo + max_err)``, so ``hi`` is not formed."""
-    lo, _ = rmi_bounds(state, queries, with_hi=False)
-    return lower_bound_windows(data, queries, lo, max_width=state.max_err)
+    """End-to-end: f32 RMI bounds -> bounded last-mile search -> exact LB,
+    as int64 ranks; one kernel launch on the card."""
+    if queries.device.type == "cpu":
+        return rmi_lookup_plain(state, data, queries)
+    return kernel.launch_lookup(state, data, queries)

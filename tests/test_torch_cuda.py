@@ -70,18 +70,56 @@ def test_rmi_kernel_vs_plain(card, ds, branching):
                         np.array([0, 1, 2**63, 2**64 - 1], np.uint64)])
     st = ops.prepare_f32_state(keys, branching=branching, device=card)
     qt = encode_keys(q, card)
-    before = rmi_kernel.launch.launches
+    before = rmi_kernel.launch_bounds.launches
     lo, hi = ops.rmi_bounds(st, qt)
     torch.cuda.synchronize()
-    assert rmi_kernel.launch.launches == before + 1
+    assert rmi_kernel.launch_bounds.launches == before + 1
     plo, phi = ops.rmi_bounds_plain(st, qt)
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
-    lo_only, no_hi = ops.rmi_bounds(st, qt, with_hi=False)
-    assert no_hi is None and torch.equal(lo_only, lo)
     lb = np.searchsorted(keys, q)
     assert ((lo.cpu().numpy() <= lb) & (lb <= hi.cpu().numpy())).all()
-    pos = ops.rmi_lookup(st, encode_keys(keys, card), qt)
+    d = encode_keys(keys, card)
+    before = rmi_kernel.launch_lookup.launches
+    pos = ops.rmi_lookup(st, d, qt)
+    torch.cuda.synchronize()
+    assert rmi_kernel.launch_lookup.launches == before + 1
+    assert pos.dtype == torch.int64
+    assert torch.equal(pos, ops.rmi_lookup_plain(st, d, qt))
     np.testing.assert_array_equal(pos.cpu().numpy(), lb)
+
+
+@pytest.mark.parametrize("width", [1, 7, 300, 5_000])
+@pytest.mark.parametrize("lo_dtype,hi_dtype", [
+    (torch.int32, torch.int32), (torch.int64, torch.int32),
+    (torch.int32, torch.int64), (torch.int64, torch.int64)])
+def test_bounded_search_per_query_hi_vs_plain(card, width, lo_dtype,
+                                              hi_dtype):
+    """A window per query, half of them holding LB and half placed at
+    random (empty, hi < lo, hi >= n, lo > n-1 among them)."""
+    rng = np.random.default_rng(width)
+    n, m = 200_000, 100_003
+    keys = np.unique(rng.integers(0, 2**64 - 1, int(n * 1.1),
+                                  dtype=np.uint64))[:n]
+    q = np.concatenate([keys[rng.integers(0, n, m // 2)],
+                        rng.integers(0, 2**64 - 1, m - m // 2,
+                                     dtype=np.uint64)])
+    lb = np.searchsorted(keys, q)
+    lo = np.maximum(lb - rng.integers(0, width, m), 0)
+    hi = lo + rng.integers(0, width, m)
+    hi = np.maximum(hi, lb)                    # these hold LB ...
+    k = m // 2                                 # ... and these need not
+    lo[k:] = rng.integers(-5, n + 5, m - k)
+    hi[k:] = lo[k:] + rng.integers(-3, width + 3, m - k)
+    d, qt = encode_keys(keys, card), encode_keys(q, card)
+    lo_t = torch.from_numpy(lo).to(card, lo_dtype)
+    hi_t = torch.from_numpy(hi).to(card, hi_dtype)
+    before = bs_kernel.launch.launches
+    got = lower_bound_windows(d, qt, lo_t, width, hi=hi_t)
+    torch.cuda.synchronize()
+    assert bs_kernel.launch.launches == before + 1
+    assert torch.equal(got, lower_bound_windows_plain(d, qt, lo_t, width,
+                                                      hi_t))
+    np.testing.assert_array_equal(got.cpu().numpy()[:k], lb[:k])
 
 
 def test_plan_backends_on_the_card(card):
@@ -94,3 +132,7 @@ def test_plan_backends_on_the_card(card):
     for fn in (p.compile("cuda"), p.compile("cuda", fused=False),
                p.compile("torch")):
         np.testing.assert_array_equal(fn(qt).cpu().numpy(), lb)
+    before = (rmi_kernel.launch_lookup.launches, bs_kernel.launch.launches)
+    p.compile("cuda")(qt)                      # fused: one launch a batch
+    assert (rmi_kernel.launch_lookup.launches,
+            bs_kernel.launch.launches) == (before[0] + 1, before[1])

@@ -94,3 +94,56 @@ def test_plan_without_fused_executor():
         p.compile("cuda")(encode_keys(q, "cpu")).numpy(), lb)
     with pytest.raises(ValueError, match="no fused"):
         p.lb_expr("cuda", fused=True)
+
+
+@pytest.mark.parametrize("ds", DATASETS)
+def test_unfused_cuda_plan_passes_hi_to_the_search(ds, monkeypatch):
+    """fused=False hands the plan's own (lo, hi) to the bounded-search
+    wrapper, so each query searches its own window, and still equals
+    the torch backend."""
+    from repro_torch.kernels.bounded_search import ops as bops
+
+    keys, q, lb = _cell(ds)
+    data, qt = encode_keys(keys, "cpu"), encode_keys(q, "cpu")
+    p = plan.lower(rmi.build(keys, branching=1024, device="cpu"), data)
+    seen = []
+
+    def spy(data, queries, lo, max_width, hi=None):
+        seen.append((lo, hi, max_width))
+        return bops.lower_bound_windows_plain(data, queries, lo, max_width,
+                                              hi)
+
+    monkeypatch.setattr(bops, "lower_bound_windows", spy)
+    got = p.compile("cuda", fused=False)(qt)
+    assert len(seen) == 1
+    lo, hi, width = seen[0]
+    plo, phi = p.bounds.predict(p.bounds.state, qt)
+    assert hi is not None and torch.equal(hi, phi) and torch.equal(lo, plo)
+    assert width == p.bounds.max_err
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), p.compile("torch")(qt).numpy())
+    np.testing.assert_array_equal(got.numpy(), lb)
+
+
+def test_fused_cuda_plan_returns_int64_ranks_from_one_call(monkeypatch):
+    """The fused RMI executor is one call of rmi_lookup, whose ranks are
+    already the int64 the plan returns (no cast after it)."""
+    from repro_torch.kernels.rmi_lookup import ops as rops
+
+    keys, q, lb = _cell("face")
+    qt = encode_keys(q, "cpu")
+    p = plan.lower(rmi.build(keys, branching=512, device="cpu"),
+                   encode_keys(keys, "cpu"))
+    calls = []
+    real = rops.rmi_lookup
+
+    def spy(st, data, queries):
+        out = real(st, data, queries)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(rops, "rmi_lookup", spy)
+    got = p.compile("cuda")(qt)
+    assert len(calls) == 1 and got is calls[0]
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), lb)

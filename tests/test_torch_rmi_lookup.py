@@ -44,7 +44,7 @@ def test_rmi_lookup_matches_reference(ds, branching):
     pos = ops.rmi_lookup(st, encode_keys(keys, "cpu"), qt)
     rpos = r_ops.rmi_lookup(rst, jnp.asarray(keys), jnp.asarray(q),
                             interpret=True)
-    assert pos.dtype == torch.int32
+    assert pos.dtype == torch.int64       # the rank type plan.compile returns
     assert (pos.numpy() == np.asarray(rpos)).all(), \
         f"LB differs; {differ} of {len(q)} (lo, hi) lanes differ from JAX"
     np.testing.assert_array_equal(pos.numpy(), lb)
@@ -82,24 +82,56 @@ def test_empty_buckets_and_cpu_path_count_no_launch():
     keys = np.arange(1, 501, dtype=np.uint64) * 1000  # B >> n: empty buckets
     st = ops.prepare_f32_state(keys, branching=4096, device="cpu")
     q = np.arange(0, 501_000, 7, dtype=np.uint64)
-    before = kernel.launch.launches
+    before = (kernel.launch_bounds.launches, kernel.launch_lookup.launches)
     pos = ops.rmi_lookup(st, encode_keys(keys, "cpu"), encode_keys(q, "cpu"))
-    assert kernel.launch.launches == before
+    ops.rmi_bounds(st, encode_keys(q, "cpu"))
+    assert (kernel.launch_bounds.launches,
+            kernel.launch_lookup.launches) == before
     np.testing.assert_array_equal(pos.numpy(), np.searchsorted(keys, q))
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.launch(st, encode_keys(q, "cpu"))
+        kernel.launch_bounds(st, encode_keys(q, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.launch_lookup(st, encode_keys(keys, "cpu"),
+                             encode_keys(q, "cpu"))
 
 
-def test_bounds_without_hi_keep_lo():
-    """The fused lookup asks for lo alone; lo is the same either way."""
-    keys = rsosd.generate("wiki", 20_000, seed=4)
-    q = np.concatenate([rsosd.make_queries(keys, 2_000, seed=6), EXTREMES])
-    st = ops.prepare_f32_state(keys, branching=512, device="cpu")
-    qt = encode_keys(q, "cpu")
-    lo, hi = ops.rmi_bounds(st, qt)
-    lo_only, no_hi = ops.rmi_bounds(st, qt, with_hi=False)
-    assert no_hi is None and hi is not None
-    assert torch.equal(lo_only, lo)
+@pytest.mark.parametrize("branching", [512, 4096])
+@pytest.mark.parametrize("ds", ["amzn", "face", "osm", "wiki"])
+def test_rmi_lookup_plain_matches_reference(ds, branching):
+    """The fused kernel's plain version (bounds, then each query's own
+    window) equals the reference's rmi_lookup ranks and np.searchsorted."""
+    keys = rsosd.generate(ds, 20_000, seed=8)
+    q = np.concatenate([rsosd.make_queries(keys, 2_000, seed=9,
+                                           present_frac=0.6), EXTREMES])
+    st = ops.prepare_f32_state(keys, branching=branching, device="cpu")
+    pos = ops.rmi_lookup_plain(st, encode_keys(keys, "cpu"),
+                               encode_keys(q, "cpu"))
+    rst = r_ops.prepare_f32_state(keys, branching=branching)
+    rpos = r_ops.rmi_lookup(rst, jnp.asarray(keys), jnp.asarray(q),
+                            interpret=True)
+    assert pos.dtype == torch.int64
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(rpos))
+    np.testing.assert_array_equal(pos.numpy(), np.searchsorted(keys, q))
+
+
+def test_packed_table_unpacks_bit_for_bit():
+    """16 bytes a bucket: a2 bits, b2 bits, err, a zero pad."""
+    keys = rsosd.generate("face", 20_000, seed=2)
+    st = ops.prepare_f32_state(keys, branching=1024, device="cpu")
+    t = st.table
+    assert t.dtype == torch.int32 and t.shape == (1024, 4)
+    assert t.is_contiguous() and t.element_size() * t.shape[1] == 16
+    np.testing.assert_array_equal(t[:, 0].numpy().view(np.float32),
+                                  st.a2.numpy())
+    np.testing.assert_array_equal(t[:, 1].numpy().view(np.float32),
+                                  st.b2.numpy())
+    assert torch.equal(t[:, 2], st.err)
+    assert int(t[:, 3].abs().sum()) == 0
+    # the bits, not only the values: -0.0 and NaN payloads survive
+    special = torch.tensor([-0.0, float("nan"), 1e-45, -3.5])
+    packed = ops.pack_table(special, special,
+                            torch.arange(4, dtype=torch.int32))
+    assert torch.equal(packed[:, 0], special.view(torch.int32))
 
 
 def test_lookup_ref_is_searchsorted():
