@@ -3,9 +3,8 @@
 
     python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (and,
-for the timing phase only, the designs they did not keep, from
-``csrc/timing``), holds each against its plain torch version bit for bit,
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
+each against its plain torch version bit for bit,
 then runs the main path at full size on two surrogates: ``amzn``, on which
 12% of the RMI's windows span much of the array, and ``wiki``, whose
 windows are narrow.  Each gets an RMI with 2^18 stage-2 models built
@@ -18,12 +17,10 @@ Per cell, after the main path: the device's idle share over the fused
 path's 10 batches, and on amzn a ``torch.profiler`` window over them
 (device time by kernel, idle share); the kernels' device times at the main
 path's shapes beside their plain versions, bounds and
-``torch.searchsorted``, the last mile in three designs timed in turns
-(every query searching the batch's widest window; a window per query; a
-window per query with the block's queries regrouped by trip count) and the
-stage-2 table packed against three arrays; the spread of the windows; and
-the fused path end to end in turns against the two-launch path it
-replaced.  One JSON line per phase; any failure exits nonzero.  The last
+``torch.searchsorted``, with the last mile timed in turns against its
+earlier design (every query searching the batch's widest window); and the
+spread of the windows.  One JSON line per phase; any failure exits
+nonzero.  The last
 line is the device summary ``{"ok": true, "device": {...}}``.  Full
 results go to ``--out``.
 
@@ -56,10 +53,9 @@ KERNEL_SOURCES = {
     "rmi_lookup": ("src/repro_torch/csrc/rmi_lookup.cu",
                    "src/repro/kernels/rmi_lookup/kernel.py:49"),
 }
-# designs the kernels did not keep, timed beside them; never on the path
-ALTERNATIVES = "src/repro_torch/csrc/timing/alternatives.cu"
-# the last mile's designs, in the order they are timed
-B1_DESIGNS = ("batch_width", "per_query", "per_query_regrouped")
+# the last mile's designs: the earlier (every query searches the batch's
+# widest window, the kernel given no hi) and the kept one (its own window)
+B1_DESIGNS = ("batch_width", "per_query")
 B1_KEPT = "per_query"
 
 
@@ -110,83 +106,17 @@ def diff(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-class Alternatives:
-    """ctypes binding of the designs the kernels did not keep."""
-
-    def __init__(self):
-        import ctypes as ct
-
-        from repro_torch.kernels import _build
-        lib = _build.load("alternatives")
-        p, ll = ct.c_void_p, ct.c_longlong
-        model = [*[ct.c_float] * 6, ct.c_int, ct.c_int]
-        lib.bounded_search_regrouped.argtypes = [p, ll, p, p, p, p, ll, ll,
-                                                 p]
-        lib.rmi_bounds_three_arrays.argtypes = [p, ll, *model, p, p, p, p, p,
-                                                p]
-        lib.rmi_lookup_three_arrays.argtypes = [p, ll, *model, p, p, p, p,
-                                                ll, p, p]
-        for fn in (lib.bounded_search_regrouped, lib.rmi_bounds_three_arrays,
-                   lib.rmi_lookup_three_arrays):
-            fn.restype = ct.c_int
-        self.lib = lib
-
-    @staticmethod
-    def _stream():
-        import torch
-        return torch.cuda.current_stream().cuda_stream
-
-    def regrouped(self, data, q, lo, hi, max_width):
-        """B1, a window per query, the block's queries regrouped by trip
-        count (int32 lo, hi)."""
-        import torch
-        out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-        rc = self.lib.bounded_search_regrouped(
-            data.data_ptr(), data.shape[0], q.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), q.shape[0], int(max_width),
-            self._stream())
-        check(rc == 0, f"bounded_search_regrouped: CUDA error {rc}")
-        return out
-
-    def three_arrays(self, st, q, with_hi: bool = True):
-        """B2 gathering a2, b2, err from three arrays."""
-        import torch
-        from repro_torch.kernels.rmi_lookup.kernel import model_args
-        m = q.shape[0]
-        lo = torch.empty(m, dtype=torch.int32, device=q.device)
-        hi = torch.empty(m, dtype=torch.int32, device=q.device) \
-            if with_hi else None
-        rc = self.lib.rmi_bounds_three_arrays(
-            q.data_ptr(), m, *model_args(st), st.a2.data_ptr(),
-            st.b2.data_ptr(), st.err.data_ptr(), lo.data_ptr(),
-            hi.data_ptr() if with_hi else None, self._stream())
-        check(rc == 0, f"rmi_bounds_three_arrays: CUDA error {rc}")
-        return lo, hi
-
-    def lookup_three_arrays(self, st, data, q):
-        """The fused lookup reading a2, b2, err from three arrays."""
-        import torch
-        from repro_torch.kernels.rmi_lookup.kernel import model_args
-        out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
-        rc = self.lib.rmi_lookup_three_arrays(
-            q.data_ptr(), q.shape[0], *model_args(st), st.a2.data_ptr(),
-            st.b2.data_ptr(), st.err.data_ptr(), data.data_ptr(), st.max_err,
-            out.data_ptr(), self._stream())
-        check(rc == 0, f"rmi_lookup_three_arrays: CUDA error {rc}")
-        return out
-
-
 def phase_build(log):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    info = _build.build_all([os.path.join(ROOT, ALTERNATIVES)])
+    info = _build.build_all()
     wall = time.perf_counter() - t0
     for name, rec in sorted(info.items()):
         ptxas = [ln.strip() for ln in rec["ptxas"].splitlines()
                  if "Used" in ln or "spill" in ln or "Compiling" in ln]
         emit({"phase": "build", "kernel": name, "nvcc_s": rec["seconds"],
               "cached": rec["cached"], "ptxas": ptxas}, log)
-    check({*KERNEL_SOURCES, "alternatives"} <= set(info),
+    check(set(KERNEL_SOURCES) <= set(info),
           f"kernels built: {sorted(info)}")
     return wall
 
@@ -364,7 +294,7 @@ def phase_main_path(dev, dataset, args, log):
     for name in ("rmi_lookup", "bounded_search"):
         check(launches[name] > 0,
               f"{name} was not launched on the {dataset} main path")
-    return p, qt, lb, launches, e2e
+    return p, qt, launches, e2e
 
 
 def phase_profile(p, qt, dataset, log, trace: bool):
@@ -396,17 +326,12 @@ def phase_profile(p, qt, dataset, log, trace: bool):
     if not trace:
         emit(rec, log)
         return rec
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall_us = window()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    except Exception as exc:     # a measurement, not a check: report it
-        rec["error"] = f"{type(exc).__name__}: {exc}"
-        emit(rec, log)
-        return rec
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_us = window()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
     for e in device:
         d = by_name.setdefault(e.name, {"count": 0, "total_us": 0.0})
@@ -440,9 +365,9 @@ def phase_profile(p, qt, dataset, log, trace: bool):
 def window_spread(count, probes, max_err: int, n: int) -> dict:
     """Spread of one batch's clipped window widths, and the probes the
     last mile makes: a query on average, and a warp of 32 (its slowest
-    lane) with the queries in batch order and regrouped by trip class
-    inside each block of 256, as the kernel does (trip counts 31 and 32
-    share a class)."""
+    lane) with the queries in batch order and, to show what regrouping
+    could save, sorted by trip class inside each block of 256 (trip counts
+    31 and 32 share a class)."""
     import torch
     ws = torch.sort(count).values
     m = ws.numel()
@@ -466,10 +391,13 @@ def window_spread(count, probes, max_err: int, n: int) -> dict:
     }
 
 
-def phase_timings(p, qt, dataset, launches, errs, alt, log):
+def phase_timings(p, qt, dataset, launches, errs, log):
     """Per-kernel device time at the main path's shapes, beside the plain
-    version, the one-call library yardstick, and the bound; the last
-    mile's three designs and the two stage-2 layouts in turns."""
+    version, the one-call library yardstick, and the bound.  B1 gets what
+    the unfused path gives it (the f64 RMI's int64 ``(lo, hi)`` and the
+    plan's ``max_err``) and is timed in turns against its earlier design,
+    the same kernel given no hi; B2 and the fused kernel get the fused
+    path's f32 state."""
     import torch
     from repro_torch.kernels.bounded_search import kernel as bs_kernel
     from repro_torch.kernels.bounded_search import ops as bops
@@ -477,73 +405,65 @@ def phase_timings(p, qt, dataset, launches, errs, alt, log):
     from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
     from repro_torch.kernels.rmi_lookup import ops as rops
 
-    st = p._cache["_rmi_f32_state"]
-    data, n, W = p.data, p.data.shape[0], st.max_err
+    data, n = p.data, p.data.shape[0]
     q0 = qt[:BATCH].contiguous()
     m = q0.shape[0]
-    lo, hi = rmi_kernel.launch_bounds(st, q0)
-    plo, phi = rops.rmi_bounds_plain(st, q0)
-    lo3, hi3 = alt.three_arrays(st, q0)
-    b1 = {"batch_width": lambda: bs_kernel.launch(data, q0, lo, W),
-          "per_query": lambda: bs_kernel.launch(data, q0, lo, W, hi),
-          "per_query_regrouped": lambda: alt.regrouped(data, q0, lo, hi, W)}
-    outs = {k: f() for k, f in b1.items()}
+    lo, hi = p.bounds.predict(p.bounds.state, q0)
+    W = p.bounds.max_err
+    st = p._cache["_rmi_f32_state"]
+    fns = {"batch_width": lambda: bs_kernel.launch(data, q0, lo, W),
+           "per_query": lambda: bs_kernel.launch(data, q0, lo, W, hi),
+           "rmi_bounds": lambda: rmi_kernel.launch_bounds(st, q0),
+           "rmi_lookup": lambda: rmi_kernel.launch_lookup(st, data, q0)}
+    outs = {k: fns[k]() for k in B1_DESIGNS}
     plain = bops.lower_bound_windows_plain(data, q0, lo, W, hi)
-    rank = rmi_kernel.launch_lookup(st, data, q0)
-    rank3 = alt.lookup_three_arrays(st, data, q0)
+    lo32, hi32 = fns["rmi_bounds"]()
+    plo, phi = rops.rmi_bounds_plain(st, q0)
+    rank = fns["rmi_lookup"]()
     prank = rops.rmi_lookup_plain(st, data, q0)
     torch.cuda.synchronize()
-    check(torch.equal(lo, plo) and torch.equal(hi, phi)
-          and torch.equal(lo3, lo) and torch.equal(hi3, hi),
-          f"rmi_bounds vs plain at {dataset} main-path shapes")
     for k, out in outs.items():
         check(torch.equal(out, plain),
               f"bounded_search ({k}) vs plain at {dataset} main-path shapes")
-    check(torch.equal(rank, prank) and torch.equal(rank3, prank),
+    check(torch.equal(lo32, plo) and torch.equal(hi32, phi),
+          f"rmi_bounds vs plain at {dataset} main-path shapes")
+    check(torch.equal(rank, prank),
           f"rmi_lookup vs plain at {dataset} main-path shapes")
     errs["bounded_search"] = max(errs["bounded_search"],
                                  diff(outs[B1_KEPT], plain))
     errs["rmi_lookup"] = max(errs["rmi_lookup"], diff(rank, prank))
-    errs["rmi_bounds"] = max(errs["rmi_bounds"], diff(lo, plo),
-                             diff(hi, phi))
+    errs["rmi_bounds"] = max(errs["rmi_bounds"], diff(lo32, plo),
+                             diff(hi32, phi))
 
     # what these inputs need: each query's own probes, every probe after
     # the first two a 32-byte sector
-    _, count = bops.clip_windows(n, lo, W, hi)
-    probes = bops.window_probes(count)
-    sectors = float((probes - 2).clamp(min=0).sum()) * 32
-    n_probes = float(probes.sum())
+    def probes_of(lo_, hi_, width):
+        _, count = bops.clip_windows(n, lo_, width, hi_)
+        probes = bops.window_probes(count)
+        return (count, probes, float(probes.sum()),
+                float((probes - 2).clamp(min=0).sum()) * 32)
+
+    count, probes, n_probes, sectors = probes_of(lo, hi, W)
+    count32, probes32, n_probes32, sectors32 = probes_of(lo32, hi32,
+                                                         st.max_err)
     steps = lb_steps(W)           # the batch-width design's formula
+    io = lo.element_size() + 8 + 4                 # q and lo in, rank out
+    tables = st.branching * 12                      # a2, b2, err
     bounds = {
-        "batch_width": bound(m * (8 + 4 + 4) + m * max(steps - 2, 0) * 32,
+        "batch_width": bound(m * io + m * max(steps - 2, 0) * 32,
                              m * steps * 6),
-        "per_query": bound(m * (8 + 4 + 4 + 4) + sectors, n_probes * 6),
-        "per_query_regrouped": bound(m * (8 + 4 + 4 + 4) + sectors,
-                                     n_probes * 6),
-        "rmi_lookup": bound(m * (8 + 8) + st.branching * 16 + sectors,
-                            m * 12 + n_probes * 6),
-        "rmi_lookup_three_arrays": bound(
-            m * (8 + 8) + st.branching * 12 + sectors,
-            m * 12 + n_probes * 6),
-        "rmi_bounds": bound(m * (8 + 8) + st.branching * 16, m * 12),
-        "rmi_bounds_three_arrays": bound(m * (8 + 8) + st.branching * 12,
-                                         m * 12),
+        "per_query": bound(m * (io + hi.element_size()) + sectors,
+                           n_probes * 6),
+        "rmi_bounds": bound(m * (8 + 8) + tables, m * 12),
+        "rmi_lookup": bound(m * (8 + 8) + tables + sectors32,
+                            m * 12 + n_probes32 * 6),
     }
 
-    # in turns: a, b, c, c, b, a; then each stage-2 layout against the
-    # other as packed, three, three, packed, standalone and fused
-    times = {k: [] for k in b1}
-    for k in [*B1_DESIGNS, *reversed(B1_DESIGNS)]:
-        times[k].append(cuda_ms(b1[k]))
-    b2 = {"rmi_bounds": lambda: rmi_kernel.launch_bounds(st, q0),
-          "rmi_bounds_three_arrays": lambda: alt.three_arrays(st, q0),
-          "rmi_lookup": lambda: rmi_kernel.launch_lookup(st, data, q0),
-          "rmi_lookup_three_arrays": lambda: alt.lookup_three_arrays(
-              st, data, q0)}
-    for packed in ("rmi_bounds", "rmi_lookup"):
-        three = f"{packed}_three_arrays"
-        for k in (packed, three, three, packed):
-            times.setdefault(k, []).append(cuda_ms(b2[k]))
+    # in turns: a, b, bounds, fused, fused, bounds, b, a
+    order = [*B1_DESIGNS, "rmi_bounds", "rmi_lookup"]
+    times = {k: [] for k in order}
+    for k in [*order, *reversed(order)]:
+        times[k].append(cuda_ms(fns[k]))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
     library_ms = cuda_ms(lambda: torch.searchsorted(data, q0))
 
@@ -571,59 +491,22 @@ def phase_timings(p, qt, dataset, launches, errs, alt, log):
         "bound_ms": bounds["rmi_lookup"][0],
         "bound_by": bounds["rmi_lookup"][1],
         "library_ms": library_ms,
-        "three_arrays_ms": ms["rmi_lookup_three_arrays"],
-        "three_arrays_bound_ms": bounds["rmi_lookup_three_arrays"][0],
         "rmi_bounds_ms": ms["rmi_bounds"],
-        "rmi_bounds_three_arrays_ms": ms["rmi_bounds_three_arrays"],
         "rmi_bounds_plain_ms": cuda_ms(lambda: rops.rmi_bounds_plain(st,
                                                                      q0)),
         "rmi_bounds_bound_ms": bounds["rmi_bounds"][0],
-        "rmi_bounds_three_arrays_bound_ms":
-            bounds["rmi_bounds_three_arrays"][0],
     }]
     emit({"phase": "timings", "dataset": dataset, "batch": m,
-          "branching": st.branching, "max_err": W,
-          "readings_ms": times, "probes": n_probes,
-          "sector_bytes": sectors,
-          "window": window_spread(count, probes, W, n),
+          "branching": st.branching, "max_err_unfused": W,
+          "max_err_fused": st.max_err, "readings_ms": times,
+          "probes_unfused": n_probes, "probes_fused": n_probes32,
+          "window_unfused": window_spread(count, probes, W, n),
+          "window_fused": window_spread(count32, probes32, st.max_err, n),
           "kernels": {k["name"]: {f: v for f, v in k.items()
                                   if f not in ("route", "source",
                                                "replaces")}
                       for k in kernels}}, log)
     return kernels
-
-
-def phase_e2e_designs(p, qt, lb, dataset, alt, log):
-    """The fused path end to end, in turns with the two-launch path it
-    replaced (stage 2 from three arrays writing lo alone, the last mile
-    over the batch's widest window, then the int64 cast), same queries,
-    same clock; every answer held against np.searchsorted."""
-    import torch
-    from repro_torch.kernels.bounded_search import kernel as bs_kernel
-
-    st = p._cache["_rmi_f32_state"]
-    data, W = p.data, st.max_err
-
-    def two_launch(q):
-        lo, _ = alt.three_arrays(st, q, with_hi=False)
-        return bs_kernel.launch(data, q, lo, W).to(torch.int64)
-
-    fns = {"cuda_fused": p.compile("cuda"), "two_launch": two_launch}
-    ns = {k: [] for k in fns}
-    for label in ("cuda_fused", "two_launch", "two_launch", "cuda_fused"):
-        fn = fns[label]
-        fn(qt[:BATCH])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [fn(qt[i:i + BATCH]) for i in range(0, QUERIES, BATCH)]
-        torch.cuda.synchronize()
-        ns[label].append((time.perf_counter() - t0) / QUERIES * 1e9)
-        got = torch.cat(outs).cpu().numpy()
-        check(bool((got == lb).all()),
-              f"{dataset}/{label} end to end != np.searchsorted")
-    emit({"phase": "e2e_designs", "dataset": dataset,
-          "ns_per_lookup": ns}, log)
-    return ns
 
 
 def main(argv=None) -> int:
@@ -654,19 +537,17 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__}, log)
     build_s = phase_build(log)
-    alt = Alternatives()
     errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
     cells = {}
     for ds in MAIN_DATASETS:
-        p, qt, lb, launches, e2e = phase_main_path(dev, ds, args, log)
+        p, qt, launches, e2e = phase_main_path(dev, ds, args, log)
         profile = phase_profile(p, qt, ds, log,
                                 trace=ds == MAIN_DATASETS[0])
-        kernels = phase_timings(p, qt, ds, launches, errs, alt, log)
-        designs = phase_e2e_designs(p, qt, lb, ds, alt, log)
+        kernels = phase_timings(p, qt, ds, launches, errs, log)
         cells[ds] = {"end_to_end": e2e, "profile": profile,
-                     "kernels": kernels, "e2e_designs": designs}
-        del p, qt, lb
+                     "kernels": kernels}
+        del p, qt
         gc.collect()
         torch.cuda.empty_cache()
     kernels = cells[MAIN_DATASETS[0]]["kernels"]

@@ -18,9 +18,9 @@
 // whose search has ended is masked off and issues no loads, so a warp that
 // mixes narrow and wide windows costs the sectors of its lanes' own probes:
 // the time follows the batch's total probes, not each warp's widest window.
-// Regrouping a block's queries by trip count first (csrc/timing, timed
-// beside this kernel by chip_smoke.py) evens out each warp's trip counts
-// but did not pay where the windows are widest, so this kernel does not.
+// Regrouping a block's queries by trip count first evens out each warp's
+// trip counts; timed on the H100 it did not pay where the windows are
+// widest (PERF.md), so this kernel does not regroup.
 // The TPU binned queries into 2048-key tiles (capacity 256, a trash row, an
 // overflow fallback) only to give VMEM static blocks; none of that is
 // carried over: one thread per query searches global memory, one code path

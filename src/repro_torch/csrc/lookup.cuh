@@ -94,15 +94,15 @@ __device__ __forceinline__ void rmi_bounds_of(const RmiModel& m, float u,
   hi = hi < 0 ? 0 : (hi > m.n ? m.n : hi);
 }
 
-// One query's bounds from the packed stage-2 table (16 bytes a bucket:
-// a2 bits, b2 bits, err, padding), read with one 16-byte load.
-__device__ __forceinline__ void rmi_bounds_packed(
-    const RmiModel& m, const int4* __restrict__ table, long long q, int& lo,
-    int& hi) {
+// One query's bounds, its stage-2 model gathered from the three tables.
+__device__ __forceinline__ void rmi_bounds_one(
+    const RmiModel& m, const float* __restrict__ a2,
+    const float* __restrict__ b2, const int* __restrict__ err, long long q,
+    int& lo, int& hi) {
   float u;
   const int bkt = rmi_bucket(m, q, u);
-  const int4 r = __ldg(table + bkt);
-  rmi_bounds_of(m, u, __int_as_float(r.x), __int_as_float(r.y), r.z, lo, hi);
+  rmi_bounds_of(m, u, __ldg(a2 + bkt), __ldg(b2 + bkt), __ldg(err + bkt), lo,
+                hi);
 }
 
 }  // namespace lookup

@@ -18,18 +18,18 @@
 //               query's own window, as bounded_search.cu does.
 //
 // What bounds it on this card: rmi_bounds by bytes (8 in, 8 out a query,
-// and one 32-byte L2 sector of the table); rmi_lookup by the search's
+// and three random 32-byte L2 sectors of the table); rmi_lookup by the search's
 // sectors, as B1.
 //
-// What the design does about it: the stage-2 table is packed as 16 bytes a
-// bucket (a2 bits, b2 bits, err, padding; 4 MB at 2^18 buckets, resident in
-// the 50 MB L2), so a query reads its record with one 16-byte load, not
-// three 4-byte gathers from three arrays (chip_smoke.py times both layouts,
-// standalone and fused).  The TPU sorted queries by bucket
-// and prefetched two 2048-row table tiles per 1024-query block because its
-// per-query HBM gathers are slow and its table could not sit in VMEM; here
-// no sort, no unsort, no tile fallback.  The fused entry writes no lo or hi
-// to device memory and writes the rank as the int64 the plan returns.
+// What the design does about it: the stage-2 tables (a2, b2, err; 3 MB at
+// 2^18 buckets) stay resident in the 50 MB L2, so a query's three gathers
+// are L2 hits.  A packed 16-byte record a bucket, read with one load, was
+// timed on the H100 and did not pay (PERF.md).  The TPU sorted queries by
+// bucket and prefetched two 2048-row table tiles per 1024-query block
+// because its per-query HBM gathers are slow and its table could not sit in
+// VMEM; here no sort, no unsort, no tile fallback.  The fused entry writes
+// no lo or hi to device memory and writes the rank as the int64 the plan
+// returns.
 #include "lookup.cuh"
 
 namespace {
@@ -38,26 +38,29 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
     rmi_bounds_kernel(const long long* __restrict__ queries, long long m,
-                      lookup::RmiModel model, const int4* __restrict__ table,
-                      int* __restrict__ lo_out, int* __restrict__ hi_out) {
+                      lookup::RmiModel model, const float* __restrict__ a2,
+                      const float* __restrict__ b2,
+                      const int* __restrict__ err, int* __restrict__ lo_out, int* __restrict__ hi_out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= m) return;
   int lo, hi;
-  lookup::rmi_bounds_packed(model, table, queries[i], lo, hi);
+  lookup::rmi_bounds_one(model, a2, b2, err, queries[i], lo, hi);
   lo_out[i] = lo;
   hi_out[i] = hi;
 }
 
 __global__ void __launch_bounds__(kThreads)
     rmi_lookup_kernel(const long long* __restrict__ queries, long long m,
-                      lookup::RmiModel model, const int4* __restrict__ table,
+                      lookup::RmiModel model, const float* __restrict__ a2,
+                      const float* __restrict__ b2,
+                      const int* __restrict__ err,
                       const long long* __restrict__ data, long long max_err,
                       long long* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= m) return;
   const long long q = queries[i];
   int lo, hi;
-  lookup::rmi_bounds_packed(model, table, q, lo, hi);
+  lookup::rmi_bounds_one(model, a2, b2, err, q, lo, hi);
   const lookup::Window w = lookup::clip_window(lo, hi, model.n, max_err);
   out[i] = lookup::window_lower_bound(data, model.n, q, w);
 }
@@ -78,23 +81,25 @@ extern "C" {
 
 int rmi_bounds(const void* queries, long long m, float c0, float c1, float x0,
                float inv_range, float scale, float hi_clamp, int branching,
-               int n, const void* table, void* lo_out, void* hi_out,
-               void* stream) {
+               int n, const void* a2, const void* b2, const void* err,
+               void* lo_out, void* hi_out, void* stream) {
   rmi_bounds_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)queries, m,
       make_model(c0, c1, x0, inv_range, scale, hi_clamp, branching, n),
-      (const int4*)table, (int*)lo_out, (int*)hi_out);
+      (const float*)a2, (const float*)b2, (const int*)err, (int*)lo_out,
+      (int*)hi_out);
   return (int)cudaGetLastError();
 }
 
 int rmi_lookup(const void* queries, long long m, float c0, float c1, float x0,
                float inv_range, float scale, float hi_clamp, int branching,
-               int n, const void* table, const void* data, long long max_err,
-               void* out, void* stream) {
+               int n, const void* a2, const void* b2, const void* err,
+               const void* data, long long max_err, void* out,
+               void* stream) {
   rmi_lookup_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)queries, m,
       make_model(c0, c1, x0, inv_range, scale, hi_clamp, branching, n),
-      (const int4*)table, (const long long*)data, max_err, (long long*)out);
+      (const float*)a2, (const float*)b2, (const int*)err, (const long long*)data, max_err, (long long*)out);
   return (int)cudaGetLastError();
 }
 

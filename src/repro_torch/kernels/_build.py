@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -47,12 +47,11 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(sources: Iterable[Path] = ()) -> Dict[str, dict]:
-    """Compile every ``csrc/*.cu`` source, and any further ``sources``,
-    not yet built, in parallel; return BUILD_INFO."""
+def build_all() -> Dict[str, dict]:
+    """Compile every source not yet built, in parallel; return BUILD_INFO."""
     with _LOCK:
         pending = []
-        for src in sorted({*CSRC.glob("*.cu"), *map(Path, sources)}):
+        for src in sorted(CSRC.glob("*.cu")):
             out = _target(src)
             if src.stem in BUILD_INFO:
                 continue

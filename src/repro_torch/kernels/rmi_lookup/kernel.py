@@ -19,13 +19,11 @@ _MODEL = [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_int]
 
 def _lib():
     lib = _build.load("rmi_lookup")
-    lib.rmi_bounds.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_MODEL,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p]
-    lib.rmi_lookup.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_MODEL,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_longlong, ctypes.c_void_p,
-                               ctypes.c_void_p]
+    p = ctypes.c_void_p
+    lib.rmi_bounds.argtypes = [p, ctypes.c_longlong, *_MODEL, p, p, p, p, p,
+                               p]
+    lib.rmi_lookup.argtypes = [p, ctypes.c_longlong, *_MODEL, p, p, p, p,
+                               ctypes.c_longlong, p, p]
     lib.rmi_bounds.restype = lib.rmi_lookup.restype = ctypes.c_int
     return lib
 
@@ -36,21 +34,29 @@ def model_args(state) -> tuple:
             state.hi_clamp, state.branching, state.n)
 
 
+def table_ptrs(state) -> tuple:
+    """The stage-2 tables' device pointers in the order the C entries take
+    them."""
+    return state.a2.data_ptr(), state.b2.data_ptr(), state.err.data_ptr()
+
+
 def _check(state, queries: torch.Tensor) -> None:
     dev = queries.device
     if not queries.is_cuda or queries.dtype != torch.int64 \
             or queries.dim() != 1 or not queries.is_contiguous():
         raise ValueError("queries must be a contiguous int64 CUDA vector")
-    t = state.table
-    if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous() \
-            or t.shape != (state.branching, 4) or t.data_ptr() % 16:
-        raise ValueError(f"state.table must be a contiguous, 16-byte aligned "
-                         f"int32 [{state.branching}, 4] on {dev}")
+    for name, t, dt in (("a2", state.a2, torch.float32),
+                        ("b2", state.b2, torch.float32),
+                        ("err", state.err, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+                or t.shape != (state.branching,):
+            raise ValueError(f"state.{name} must be a contiguous {dt} "
+                             f"[{state.branching}] on {dev}")
 
 
 def launch_bounds(state, queries: torch.Tensor):
     """(lo, hi) int32 bounds for encoded ``queries`` under an
-    `ops.F32RMIState` whose table lies on the queries' CUDA device."""
+    `ops.F32RMIState` whose tables lie on the queries' CUDA device."""
     _check(state, queries)
     dev, m = queries.device, queries.shape[0]
     lo = torch.empty(m, dtype=torch.int32, device=dev)
@@ -60,7 +66,7 @@ def launch_bounds(state, queries: torch.Tensor):
     with torch.cuda.device(dev):
         rc = _lib().rmi_bounds(
             queries.data_ptr(), m, *model_args(state),
-            state.table.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            *table_ptrs(state), lo.data_ptr(), hi.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rmi_bounds launch failed: CUDA error {rc}")
@@ -84,7 +90,7 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
     with torch.cuda.device(dev):
         rc = _lib().rmi_lookup(
             queries.data_ptr(), m, *model_args(state),
-            state.table.data_ptr(), data.data_ptr(), state.max_err,
+            *table_ptrs(state), data.data_ptr(), state.max_err,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")

@@ -5,8 +5,7 @@ reference does) and verifies its stage-2 error table through `ref`'s plain
 torch arithmetic, which ``csrc/rmi_lookup.cu`` reproduces bit for bit
 (``_rn`` intrinsics, no FMA).  The table is therefore valid for the
 kernel, and only for it: it is not the reference's table, whose
-verification ran under XLA's FMA contraction.  The state also packs the
-stage-2 table as 16 bytes a bucket, the layout the kernel reads.
+verification ran under XLA's FMA contraction.
 
 `rmi_bounds` and `rmi_lookup` send a CUDA tensor to the kernel and a CPU
 tensor to their plain versions.  On the card `rmi_lookup` is one launch,
@@ -40,7 +39,6 @@ class F32RMIState:
     a2: torch.Tensor        # [B] f32
     b2: torch.Tensor        # [B] f32
     err: torch.Tensor       # [B] int32
-    table: torch.Tensor     # [B, 4] int32: a2 bits, b2 bits, err, 0
     scale: float            # B / n (f64; the arithmetic uses its f32)
     branching: int
     n: int
@@ -57,13 +55,6 @@ class F32RMIState:
 
 
 _infer_u_bkt = _ref.infer_u_bkt
-
-
-def pack_table(a2, b2, err) -> torch.Tensor:
-    """The stage-2 table as one 16-byte record a bucket: ``a2`` and ``b2``
-    as their f32 bits, ``err``, and a zero pad."""
-    return torch.stack([a2.view(torch.int32), b2.view(torch.int32), err,
-                        torch.zeros_like(err)], dim=1).contiguous()
 
 
 def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
@@ -99,7 +90,6 @@ def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
         a2=torch.zeros(1, dtype=torch.float32, device=dev),
         b2=torch.zeros(1, dtype=torch.float32, device=dev),
         err=torch.zeros(1, dtype=torch.int32, device=dev),
-        table=torch.zeros((1, 4), dtype=torch.int32, device=dev),
         scale=scale, branching=B, n=n, max_err=1,
     )
     # bucket assignment + u through the EXACT kernel-side math
@@ -132,7 +122,6 @@ def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
     err_i = (bucket_errors(lambda u, b: _ref.stage2_pred(a2f, b2f, u, b),
                            u_t, bkt_d, bkt_d, n, B) + 1).to(torch.int32)
     return dataclasses.replace(state, a2=a2f, b2=b2f, err=err_i,
-                               table=pack_table(a2f, b2f, err_i),
                                max_err=int(2 * int(err_i.max()) + 2))
 
 

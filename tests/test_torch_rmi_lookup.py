@@ -5,6 +5,10 @@ Tolerance: LB exact; bounds valid, not necessarily equal.  XLA on the CPU
 contracts ``a*u+b`` into an FMA and the port does not, so a few lanes'
 ``(lo, hi)`` may differ from the reference's; the count is reported.
 """
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import jax
 
 jax.config.update("jax_enable_x64", True)
@@ -114,24 +118,22 @@ def test_rmi_lookup_plain_matches_reference(ds, branching):
     np.testing.assert_array_equal(pos.numpy(), np.searchsorted(keys, q))
 
 
-def test_packed_table_unpacks_bit_for_bit():
-    """16 bytes a bucket: a2 bits, b2 bits, err, a zero pad."""
-    keys = rsosd.generate("face", 20_000, seed=2)
-    st = ops.prepare_f32_state(keys, branching=1024, device="cpu")
-    t = st.table
-    assert t.dtype == torch.int32 and t.shape == (1024, 4)
-    assert t.is_contiguous() and t.element_size() * t.shape[1] == 16
-    np.testing.assert_array_equal(t[:, 0].numpy().view(np.float32),
-                                  st.a2.numpy())
-    np.testing.assert_array_equal(t[:, 1].numpy().view(np.float32),
-                                  st.b2.numpy())
-    assert torch.equal(t[:, 2], st.err)
-    assert int(t[:, 3].abs().sum()) == 0
-    # the bits, not only the values: -0.0 and NaN payloads survive
-    special = torch.tensor([-0.0, float("nan"), 1e-45, -3.5])
-    packed = ops.pack_table(special, special,
-                            torch.arange(4, dtype=torch.int32))
-    assert torch.equal(packed[:, 0], special.view(torch.int32))
+@pytest.mark.parametrize("entry", ["rmi_bounds", "rmi_lookup"])
+def test_binding_passes_model_and_tables_in_the_c_order(entry):
+    """The ctypes binding hands the f32 constants and the three stage-2
+    tables to each C entry in the order its signature names them."""
+    src = (Path(kernel.__file__).resolve().parents[2] / "csrc"
+           / "rmi_lookup.cu").read_text()
+    sig = re.search(rf"^int {entry}\(([^)]*)\)", src, re.M).group(1)
+    names = [a.split()[-1].lstrip("*") for a in sig.split(",")]
+    fields = ("c0", "c1", "x0", "inv_range", "scale_f32", "hi_clamp",
+              "branching", "n")
+    st = SimpleNamespace(**{f: f.replace("_f32", "") for f in fields},
+                         **{t: SimpleNamespace(data_ptr=lambda t=t: t)
+                            for t in ("a2", "b2", "err")})
+    got = (*kernel.model_args(st), *kernel.table_ptrs(st))
+    assert names[:2] == ["queries", "m"]
+    assert tuple(names[2:2 + len(got)]) == got
 
 
 def test_lookup_ref_is_searchsorted():
