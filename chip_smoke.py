@@ -19,10 +19,19 @@ path's 10 batches, and on amzn a ``torch.profiler`` window over them
 path's shapes beside their plain versions, bounds and
 ``torch.searchsorted``, with the last mile timed in turns against its
 earlier design (every query searching the batch's widest window); and the
-spread of the windows.  One JSON line per phase; any failure exits
-nonzero.  The last
-line is the device summary ``{"ok": true, "device": {...}}``.  Full
-results go to ``--out``.
+spread of the windows.  Then every other index family on the same keys and
+queries (``families``): PGM, RadixSpline, RBS, BTree, binary search and
+the Robin Hood hash, each built through ``spec.build`` at its schema
+defaults, run on both backends (the ``cuda`` backend of every family but
+the hash is ``bounded_search`` over the family's own windows) against
+``np.searchsorted`` or, for the hash, the point oracle, with its launch
+counts, B1's time and probes on its windows, and freed before the next.
+On amzn the plan transforms of the PGM plan (``transforms``: scan, merged
+and merged scan over a delta of 1M absent keys, instrumented with pad
+lanes), and per cell B1 over the binary-search plan's whole-array windows
+beside ``torch.searchsorted`` (a ``timings`` row).  One JSON line per
+phase; any failure exits nonzero.  The last line is the device summary
+``{"ok": true, "device": {...}}``.  Full results go to ``--out``.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -57,6 +66,17 @@ KERNEL_SOURCES = {
 # widest window, the kernel given no hi) and the kept one (its own window)
 B1_DESIGNS = ("batch_width", "per_query")
 B1_KEPT = "per_query"
+# every other index family, at its schema defaults (robin_hash is point-only;
+# ibtree shares btree's state and cuda path, so it is not built again)
+FAMILIES = (("pgm", {"eps": 64}), ("radix_spline", {"eps": 32,
+                                                     "radix_bits": 16}),
+            ("rbs", {"radix_bits": 16}), ("btree", {"sample": 1,
+                                                    "fanout": 128}),
+            ("binary_search", {}), ("robin_hash", {"load_factor": 0.5}))
+TRANSFORMS_CELL = "amzn"       # the plan transforms run over its PGM plan
+SCAN_M = 16                    # records a scan materializes
+DELTA_KEYS = 1_000_000         # absent keys of the merged lookups' delta
+N_VALID = BATCH - 12_345       # lanes the instrumented lookup counts
 
 
 class SmokeFailure(RuntimeError):
@@ -210,16 +230,12 @@ def phase_kernels_vs_plain(dev, seed, log, errs):
         check(e1 == 0 and exact, f"bounded_search vs plain on {case}")
 
 
-def phase_main_path(dev, dataset, args, log):
-    """The port's read path at full size, through its public entry points.
-    Launch counts are zeroed just before the runs and read just after."""
+def make_cell(dev, dataset, args):
+    """The cell's keys (host), its 10M queries (on the card) and their
+    np.searchsorted ranks (host)."""
     import numpy as np
-    import torch
-    from repro_torch.core import plan, spec
     from repro_torch.data import sosd
-    from repro_torch.kernels.bounded_search import kernel as bs_kernel
     from repro_torch.kernels.common import encode_keys
-    from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 
     t0 = time.perf_counter()
     keys = sosd.generate(dataset, args.n, seed=args.seed)
@@ -228,48 +244,77 @@ def phase_main_path(dev, dataset, args, log):
     t0 = time.perf_counter()
     lb = np.searchsorted(keys, queries)
     t_oracle = time.perf_counter() - t0
-    qt = encode_keys(queries, dev)
-    del queries
+    return {"keys": keys, "queries": queries, "qt": encode_keys(queries, dev),
+            "lb": lb, "generate_s": t_gen, "host_oracle_s": t_oracle}
 
-    counters = {"rmi_lookup": rmi_kernel.launch_lookup,
-                "rmi_bounds": rmi_kernel.launch_bounds,
-                "bounded_search": bs_kernel.launch}
-    torch.cuda.reset_peak_memory_stats()
+
+def kernel_counters():
+    from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
+    return {"rmi_lookup": rmi_kernel.launch_lookup,
+            "rmi_bounds": rmi_kernel.launch_bounds,
+            "bounded_search": bs_kernel.launch}
+
+
+def driven(fn):
+    """Run ``fn`` with every launch count set to 0 just before it; return
+    its result and the counts read just after."""
+    import torch
+    counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def run_batches(fn, qt):
+    """A warm-up batch, then the 10 timed ones; ``(ranks, seconds)``."""
+    import torch
+    fn(qt[:BATCH])                                # warm-up batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(qt[i:i + BATCH]) for i in range(0, QUERIES, BATCH)]
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def phase_main_path(dev, dataset, cell, args, log, totals):
+    """The port's RMI read path at full size, through its public entry
+    points.  Each run's launch counts are zeroed just before it and read
+    just after."""
+    import torch
+    from repro_torch.core import plan, spec
+    from repro_torch.kernels.common import encode_keys
+
+    keys, qt, lb = cell["keys"], cell["qt"], cell["lb"]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     build = spec.build(spec.IndexSpec("rmi", {"branching": BRANCHING}), keys,
                        device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     p = plan.lower(build, encode_keys(keys, dev))
-    del keys
     emit({"phase": "main_path_setup", "dataset": dataset, "n": args.n,
           "queries": QUERIES, "batch": BATCH, "branching": BRANCHING,
           "max_err": p.bounds.max_err, "size_bytes": build.size_bytes,
-          "generate_s": t_gen, "build_s": t_build,
-          "host_oracle_s": t_oracle}, log)
+          "generate_s": cell["generate_s"], "build_s": t_build,
+          "host_oracle_s": cell["host_oracle_s"]}, log)
 
     runs = [("cuda", True), ("cuda", False), ("torch", None), ("cuda", True)]
     calls = QUERIES // BATCH + 1                  # a warm-up batch, then 10
     e2e, per_run = {}, []
+    launches = {k: 0 for k in kernel_counters()}
     for backend, fused in runs:
-        before = {k: c.launches for k, c in counters.items()}
         t0 = time.perf_counter()
         fn = p.compile(backend, fused=fused)
         torch.cuda.synchronize()
         t_compile = time.perf_counter() - t0
-        fn(qt[:BATCH])                            # warm-up batch
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = [fn(qt[i:i + BATCH]) for i in range(0, QUERIES, BATCH)]
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        (outs, dt), launched = driven(lambda: run_batches(fn, qt))
         got = torch.cat(outs).cpu().numpy()
         exact = bool(got.shape == lb.shape and (got == lb).all())
         label = backend if fused is None else \
             f"{backend}_{'fused' if fused else 'unfused'}"
-        launched = {k: c.launches - before[k] for k, c in counters.items()}
         rec = {"phase": "main_path", "dataset": dataset, "backend": label,
                "last_mile": p.last_mile if backend == "torch" else "kernel",
                "compile_s": t_compile, "seconds": dt,
@@ -282,9 +327,11 @@ def phase_main_path(dev, dataset, args, log):
         check(exact, f"main path {dataset}/{label} != np.searchsorted")
         want = {"cuda_fused": {"rmi_lookup": calls},
                 "cuda_unfused": {"bounded_search": calls}}.get(label, {})
-        check(launched == {k: want.get(k, 0) for k in counters},
+        check(launched == {k: want.get(k, 0) for k in launched},
               f"{dataset}/{label} launched {launched}")
-    launches = {k: c.launches for k, c in counters.items()}
+        for k, v in launched.items():
+            launches[k] += v
+            totals[k] += v
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "main_path_launches", "dataset": dataset, **launches,
           "calls_per_run": calls, "per_run": per_run,
@@ -294,7 +341,7 @@ def phase_main_path(dev, dataset, args, log):
     for name in ("rmi_lookup", "bounded_search"):
         check(launches[name] > 0,
               f"{name} was not launched on the {dataset} main path")
-    return p, qt, launches, e2e
+    return p, e2e
 
 
 def phase_profile(p, qt, dataset, log, trace: bool):
@@ -391,7 +438,18 @@ def window_spread(count, probes, max_err: int, n: int) -> dict:
     }
 
 
-def phase_timings(p, qt, dataset, launches, errs, log):
+def probes_of(n, lo, hi, width):
+    """What B1's inputs need: each query's window and its own probes,
+    every probe after the first two a 32-byte sector; ``(count, probes,
+    total probes, sector bytes)``."""
+    from repro_torch.kernels.bounded_search import ops as bops
+    _, count = bops.clip_windows(n, lo, width, hi)
+    probes = bops.window_probes(count)
+    return (count, probes, float(probes.sum()),
+            float((probes - 2).clamp(min=0).sum()) * 32)
+
+
+def phase_timings(p, qt, dataset, errs, log):
     """Per-kernel device time at the main path's shapes, beside the plain
     version, the one-call library yardstick, and the bound.  B1 gets what
     the unfused path gives it (the f64 RMI's int64 ``(lo, hi)`` and the
@@ -435,16 +493,8 @@ def phase_timings(p, qt, dataset, launches, errs, log):
     errs["rmi_bounds"] = max(errs["rmi_bounds"], diff(lo32, plo),
                              diff(hi32, phi))
 
-    # what these inputs need: each query's own probes, every probe after
-    # the first two a 32-byte sector
-    def probes_of(lo_, hi_, width):
-        _, count = bops.clip_windows(n, lo_, width, hi_)
-        probes = bops.window_probes(count)
-        return (count, probes, float(probes.sum()),
-                float((probes - 2).clamp(min=0).sum()) * 32)
-
-    count, probes, n_probes, sectors = probes_of(lo, hi, W)
-    count32, probes32, n_probes32, sectors32 = probes_of(lo32, hi32,
+    count, probes, n_probes, sectors = probes_of(n, lo, hi, W)
+    count32, probes32, n_probes32, sectors32 = probes_of(n, lo32, hi32,
                                                          st.max_err)
     steps = lb_steps(W)           # the batch-width design's formula
     io = lo.element_size() + 8 + 4                 # q and lo in, rank out
@@ -471,7 +521,7 @@ def phase_timings(p, qt, dataset, launches, errs, log):
         "name": "bounded_search", "route": "cuda",
         "source": KERNEL_SOURCES["bounded_search"][0],
         "replaces": KERNEL_SOURCES["bounded_search"][1],
-        "launches": launches["bounded_search"],
+        "launches": None,           # the whole script's count, set by main
         "max_abs_err": errs["bounded_search"],
         "ms": ms[B1_KEPT],
         "plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
@@ -484,7 +534,7 @@ def phase_timings(p, qt, dataset, launches, errs, log):
         "name": "rmi_lookup", "route": "cuda",
         "source": KERNEL_SOURCES["rmi_lookup"][0],
         "replaces": KERNEL_SOURCES["rmi_lookup"][1],
-        "launches": launches["rmi_lookup"],
+        "launches": None,
         "max_abs_err": max(errs["rmi_lookup"], errs["rmi_bounds"]),
         "ms": ms["rmi_lookup"],
         "plain_ms": cuda_ms(lambda: rops.rmi_lookup_plain(st, data, q0)),
@@ -504,9 +554,205 @@ def phase_timings(p, qt, dataset, launches, errs, log):
           "window_fused": window_spread(count32, probes32, st.max_err, n),
           "kernels": {k["name"]: {f: v for f, v in k.items()
                                   if f not in ("route", "source",
-                                               "replaces")}
+                                               "replaces", "launches")}
                       for k in kernels}}, log)
     return kernels
+
+
+def b1_on_windows(p, q0):
+    """B1 over one batch's own windows from the plan's predict: its
+    device time, its plain version's, the bound and the probes."""
+    import torch
+    from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.bounded_search import ops as bops
+
+    data, n, m = p.data, p.data.shape[0], q0.shape[0]
+    W = p.bounds.max_err
+    lo, hi = p.bounds.predict(p.bounds.state, q0)
+    count, probes, n_probes, sectors = probes_of(n, lo, hi, W)
+    b, by = bound(m * (8 + lo.element_size() + hi.element_size() + 4)
+                  + sectors, n_probes * 6)
+    got = bs_kernel.launch(data, q0, lo, W, hi)
+    plain = bops.lower_bound_windows_plain(data, q0, lo, W, hi)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), f"bounded_search vs plain on {p.name}")
+    return {"b1_ms": cuda_ms(lambda: bs_kernel.launch(data, q0, lo, W, hi)),
+            "b1_plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
+                data, q0, lo, W, hi), reps=3, warmup=1),
+            "b1_bound_ms": b, "b1_bound_by": by,
+            "b1_max_abs_err": diff(got, plain),
+            "window": window_spread(count, probes, W, n)}
+
+
+def phase_families(dev, dataset, cell, data, args, log, totals, errs):
+    """Every other index family on the cell's keys, built through
+    ``spec.build`` on the card at its schema defaults, lowered, and run on
+    both backends over the 10M queries; each family is freed before the
+    next is built."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import plan, spec
+
+    keys, qt, lb = cell["keys"], cell["qt"], cell["lb"]
+    n = len(keys)
+    calls = QUERIES // BATCH + 1
+    present = keys[np.minimum(lb, n - 1)] == cell["queries"]
+    point = np.where(present, lb, -1)            # the hash's oracle
+    q0 = qt[:BATCH].contiguous()
+    out = {}
+    for name, hyper in FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        build = spec.build(spec.IndexSpec(name, hyper), keys, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        p = plan.lower(build, data)
+        rec = {"phase": "families", "dataset": dataset, "index": name,
+               "hyper": build.hyper, "build_s": t_build,
+               "size_bytes": build.size_bytes, "max_err": p.bounds.max_err,
+               "point_only": p.point_only}
+        for backend in ("cuda", "torch"):
+            fn = p.compile(backend)
+            (outs, dt), launched = driven(lambda: run_batches(fn, qt))
+            got = torch.cat(outs).cpu().numpy()
+            exact = bool((got == (point if p.point_only else lb)).all())
+            want = {"bounded_search": calls} \
+                if backend == "cuda" and not p.point_only else {}
+            rec[backend] = {"ns_per_lookup": dt / QUERIES * 1e9,
+                            "seconds": dt, "exact": exact,
+                            "launches": launched}
+            check(exact, f"{dataset}/{name}/{backend} != the oracle")
+            check(launched == {k: want.get(k, 0) for k in launched},
+                  f"{dataset}/{name}/{backend} launched {launched}")
+            for k, v in launched.items():
+                totals[k] += v
+        if not p.point_only:
+            rec.update(b1_on_windows(p, q0))
+            errs["bounded_search"] = max(errs["bounded_search"],
+                                         rec["b1_max_abs_err"])
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        emit(rec, log)
+        out[name] = rec
+        if name == "pgm" and dataset == TRANSFORMS_CELL:
+            phase_transforms(p, cell, log, totals)
+        if name == "binary_search":
+            out["whole_array"] = phase_whole_array(p, q0, dataset, log)
+        del build, p, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_transforms(p, cell, log, totals):
+    """The plan transforms over one 1M batch of the PGM plan, each on the
+    cuda backend: scan, merged and merged scan against a delta of 1M
+    absent keys, and the instrumented lookup with pad lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import plan
+    from repro_torch.kernels.common import decode_keys, encode_keys
+
+    keys, n = cell["keys"], len(cell["keys"])
+    q0 = cell["qt"][:BATCH].contiguous()
+    q0_np, lb0 = cell["queries"][:BATCH], cell["lb"][:BATCH]
+    rng = np.random.default_rng(SCAN_M)
+    cand = np.unique(rng.integers(int(keys[0]), int(keys[-1]),
+                                  DELTA_KEYS + DELTA_KEYS // 4,
+                                  dtype=np.uint64))
+    hit = keys[np.minimum(np.searchsorted(keys, cand), n - 1)] == cand
+    cand = cand[~hit]
+    delta = np.sort(cand[rng.choice(len(cand), DELTA_KEYS, replace=False)])
+    pad = 1 << (DELTA_KEYS - 1).bit_length()
+    padded = np.full(pad, np.iinfo(np.uint64).max, np.uint64)
+    padded[:DELTA_KEYS] = delta
+    dt = encode_keys(padded, q0.device)
+    union = np.insert(keys, np.searchsorted(keys, delta), delta)
+    sentinel = np.iinfo(np.uint64).max
+
+    def windows(arr, start):
+        idx = start[:, None] + np.arange(SCAN_M)[None, :]
+        return np.where(idx < len(arr), arr[np.minimum(idx, len(arr) - 1)],
+                        sentinel)
+
+    runs = {
+        "scan": lambda: p.compile_scan(SCAN_M, "cuda")(q0),
+        "merged": lambda: p.compile_merged("cuda")(q0, dt),
+        "merged_scan": lambda: p.compile_merged_scan(SCAN_M, "cuda")(q0, dt),
+        "instrumented": lambda: p.compile_instrumented("cuda")(q0, N_VALID),
+    }
+    merged_lb = np.searchsorted(union, q0_np)
+    lo, hi = p.bounds.predict(p.bounds.state, q0)
+    for kind, fn in runs.items():
+        res, launched = driven(fn)
+        t0 = time.perf_counter()
+        if kind == "scan":
+            pos, win = res
+            ok = bool((pos.cpu().numpy() == lb0).all() and (
+                decode_keys(win) == windows(keys, lb0)).all())
+        elif kind == "merged":
+            ok = bool((res.cpu().numpy() == merged_lb).all())
+        elif kind == "merged_scan":
+            pos, win = res
+            ok = bool((pos.cpu().numpy() == merged_lb).all() and (
+                decode_keys(win) == windows(union, merged_lb)).all())
+        else:
+            pos, packed = res
+            want = plan.pack_health_stats(plan.health_stats_expr(
+                pos.cpu(), lo.cpu(), hi.cpu(), p.n, p.bounds.max_err,
+                N_VALID))
+            ok = bool(torch.equal(pos, p.compile("cuda")(q0))
+                      and torch.equal(packed.cpu(), want))
+        emit({"phase": "transforms", "dataset": TRANSFORMS_CELL,
+              "index": p.name, "kind": kind, "batch": BATCH,
+              "scan_m": SCAN_M, "delta_keys": DELTA_KEYS, "delta_pad": pad,
+              "n_valid": N_VALID, "exact": ok, "launches": launched,
+              "check_s": time.perf_counter() - t0}, log)
+        check(ok, f"transform {kind} != its oracle")
+        check(launched == {"rmi_lookup": 0, "rmi_bounds": 0,
+                           "bounded_search": 1},
+              f"transform {kind} launched {launched}")
+        for k, v in launched.items():
+            totals[k] += v
+
+
+def phase_whole_array(p, q0, dataset, log):
+    """B1 over the binary_search plan's windows (the whole array) beside
+    ``torch.searchsorted`` on the same 1M queries: the same work, in
+    turns."""
+    import torch
+    from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.bounded_search import ops as bops
+
+    data, n, m = p.data, p.data.shape[0], q0.shape[0]
+    lo, hi = p.bounds.predict(p.bounds.state, q0)
+    fns = {"bounded_search": lambda: bs_kernel.launch(data, q0, lo, n + 1, hi),
+           "searchsorted": lambda: torch.searchsorted(data, q0)}
+    check(torch.equal(fns["bounded_search"]().long(), fns["searchsorted"]()),
+          "whole-array B1 != torch.searchsorted")
+    times = {k: [] for k in fns}
+    for k in [*fns, *reversed(list(fns))]:
+        times[k].append(cuda_ms(fns[k]))
+    probes = (n + 1).bit_length()
+    io = m * (8 + 8 + 8 + 4)
+    # every query's probe j lies on level j of one search tree, which has
+    # at most 2^j distinct positions: the sectors these queries need at
+    # least.  The other rows' rule (32 bytes a probe after a query's first
+    # two) counts the shared upper levels once a query, over the bound.
+    distinct = sum(min(1 << j, m, n + 1) for j in range(probes))
+    b, by = bound(io + distinct * 32, m * probes * 6)
+    rule, _ = bound(io + m * (probes - 2) * 32, m * probes * 6)
+    rec = {"phase": "timings", "dataset": dataset, "plan": "binary_search",
+           "kernel": "bounded_search", "batch": m, "probes_per_query": probes,
+           "readings_ms": times,
+           "ms": sum(times["bounded_search"]) / 2,
+           "plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
+               data, q0, lo, n + 1, hi), reps=3, warmup=1),
+           "library_ms": sum(times["searchsorted"]) / 2,
+           "bound_ms": b, "bound_by": by, "bound_ms_per_query_rule": rule}
+    emit(rec, log)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -539,18 +785,32 @@ def main(argv=None) -> int:
     build_s = phase_build(log)
     errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
+    totals = {k: 0 for k in kernel_counters()}
     cells = {}
     for ds in MAIN_DATASETS:
-        p, qt, launches, e2e = phase_main_path(dev, ds, args, log)
-        profile = phase_profile(p, qt, ds, log,
+        cell = make_cell(dev, ds, args)
+        p, e2e = phase_main_path(dev, ds, cell, args, log, totals)
+        profile = phase_profile(p, cell["qt"], ds, log,
                                 trace=ds == MAIN_DATASETS[0])
-        kernels = phase_timings(p, qt, ds, launches, errs, log)
+        kernels = phase_timings(p, cell["qt"], ds, errs, log)
+        data = p.data
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        families = phase_families(dev, ds, cell, data, args, log, totals,
+                                  errs)
         cells[ds] = {"end_to_end": e2e, "profile": profile,
-                     "kernels": kernels}
-        del p, qt
+                     "kernels": kernels, "families": families}
+        del cell, data
         gc.collect()
         torch.cuda.empty_cache()
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
+    for k in kernels:
+        k["launches"] = totals[k["name"]]
+        k["max_abs_err"] = max(errs[k["name"]],
+                               errs["rmi_bounds"] if k["name"] == "rmi_lookup"
+                               else 0)
+    emit({"phase": "launches", **totals}, log)
     summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
                "build_wall_s": build_s, "cells": cells,
                "total_s": time.perf_counter() - t_start, "log": log}

@@ -7,7 +7,8 @@ Importing this package registers the builders (their schemas with them).
 from repro_torch.core.base import (IndexBuild, REGISTRY, SearchBound,
                                    get_index, lower_bound_oracle, register)
 from repro_torch.core import spec  # schemas register below
-from repro_torch.core import rmi  # noqa: F401
+from repro_torch.core import (  # noqa: F401
+    btree, hashmap, pgm, radix_spline, rbs, rmi)
 from repro_torch.core import plan, search, validate  # noqa: F401
 from repro_torch.core.plan import LookupPlan, lower
 from repro_torch.core.spec import IndexSpec

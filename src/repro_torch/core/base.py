@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import _pla
 from repro_torch.kernels.common import keys_to_f64  # noqa: F401  (re-export)
 
 Array = Any
@@ -40,9 +41,24 @@ class IndexBuild:
 
     @property
     def device(self) -> torch.device:
-        """The device the state lives on."""
-        return next(v for v in self.state.values()
-                    if isinstance(v, torch.Tensor)).device
+        """The device the state lives on (an index with no state tensor,
+        the binary-search baseline, names it in ``meta``)."""
+        for t in _tensors(self.state):
+            return t.device
+        return torch.device(self.meta["device"])
+
+
+def _tensors(x):
+    """The tensors of a state: a tensor, or dicts, lists and tuples of
+    them."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +89,14 @@ def lower_bound_oracle(keys: np.ndarray, queries: np.ndarray) -> np.ndarray:
 
 def np_keys_to_f64(keys: np.ndarray) -> np.ndarray:
     return keys.astype(np.float64)
+
+
+def grouped_keys(keys: np.ndarray):
+    """The fit points of the PLA builders: f64-rounded unique keys, the
+    first position of each, and the widest group of keys that round
+    alike (`core._pla.group_rounded`)."""
+    return _pla.group_rounded(np_keys_to_f64(keys),
+                              np.arange(len(keys), dtype=np.float64))
 
 
 def clip_bound(lo, hi, n: int) -> SearchBound:

@@ -25,14 +25,14 @@ def bounded_binary(data, q, lo, hi, max_width: int, side: str = "left"):
 def bounded_linear(data, q, lo, hi, max_width: int, chunk: int = 4096):
     """Vector "linear search": gather the whole window, count keys < q.
 
-    The window has static width (next multiple of 128 >= max_width);
-    windows wider than ``chunk`` are counted chunk by chunk to bound the
-    materialized gather.
+    The window has static width (next multiple of 128 >= max_width,
+    never more than the array holds); windows wider than ``chunk`` are
+    counted chunk by chunk to bound the materialized gather.
     """
     del hi
     n = data.shape[0]
     lo = lo.to(torch.int64)
-    width = int(np.ceil(max(1, int(max_width)) / 128.0)) * 128
+    width = int(np.ceil(max(1, min(int(max_width), n + 1)) / 128.0)) * 128
     offs = torch.arange(min(width, chunk), dtype=torch.int64, device=lo.device)
 
     def count_chunk(start_off):

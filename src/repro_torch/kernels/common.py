@@ -137,39 +137,18 @@ def bucket_errors(pred, u, bkt, bkt_mono, n: int,
     return torch.ceil(torch.clamp(err, max=float(n) + 1.0)).to(torch.int64)
 
 
-def split_u64(a):
-    """Keys -> (hi, lo) uint32 planes.  A numpy array is taken as raw
-    keys; an int64 tensor as encoded keys (planes returned as int64); a
-    narrower tensor gets a zero hi plane."""
-    if isinstance(a, np.ndarray):
-        if a.dtype.itemsize <= 4:
-            lo = a.astype(np.uint32)
-            return np.zeros_like(lo), lo
-        a = a.astype(np.uint64)
-        return (a >> np.uint64(32)).astype(np.uint32), a.astype(np.uint32)
-    if a.element_size() <= 4:
-        lo = a.to(torch.int64) & _U32
-        return torch.zeros_like(lo), lo
-    return key_halves(a)
+def radix_prefix(q, kmin, shift: int, radix_bits: int):
+    """Radix buckets of encoded keys: ``(q - kmin) >> shift`` in uint64
+    arithmetic (0 where ``q <= kmin``), clipped to ``2^radix_bits - 1``.
 
-
-def merge_u64(hi, lo):
-    return (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(
-        lo
-    ).astype(np.uint64)
-
-
-def less_u64(a_hi, a_lo, b_hi, b_lo):
-    """(a < b) for keys as uint32 planes."""
-    return (a_hi < b_hi) | ((a_hi == b_hi) & (a_lo < b_lo))
-
-
-def pad_pow2(x: int, minimum: int = 128) -> int:
-    n = minimum
-    while n < x:
-        n *= 2
-    return n
-
-
-def pad_to(x: int, multiple: int) -> int:
-    return ((x + multiple - 1) // multiple) * multiple
+    The encoded difference wraps to the bit pattern of the uint64
+    difference, which reads negative once that difference is >= 2^63.
+    torch's ``>>`` is arithmetic, so the shifted value is masked to a
+    logical shift; unshifted, a negative difference lies past every
+    bucket."""
+    d = torch.where(q > kmin, q - kmin, 0)
+    if shift:
+        p = (d >> shift) & ((1 << (64 - shift)) - 1)
+    else:
+        p = torch.where(d < 0, 1 << radix_bits, d)
+    return torch.clamp(p, 0, (1 << radix_bits) - 1)

@@ -54,9 +54,6 @@ class F32RMIState:
         return float(np.float32(float(self.n) + 1.0))
 
 
-_infer_u_bkt = _ref.infer_u_bkt
-
-
 def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
                       device=None) -> F32RMIState:
     """Fit a linear/linear RMI over sorted uint64 ``keys`` and verify its
@@ -93,7 +90,7 @@ def prepare_f32_state(keys: np.ndarray, branching: int = 4096,
         scale=scale, branching=B, n=n, max_err=1,
     )
     # bucket assignment + u through the EXACT kernel-side math
-    u_t, bkt_t = _infer_u_bkt(state, encode_keys(keys, dev))
+    u_t, bkt_t = _ref.infer_u_bkt(state, encode_keys(keys, dev))
     u32 = u_t.cpu().numpy().astype(np.float64)
     bkt = np.maximum.accumulate(bkt_t.cpu().numpy().astype(np.int64))
 

@@ -1,4 +1,4 @@
-"""Port foundations vs the reference: key codec, u64 planes, branchless LB."""
+"""Port foundations vs the reference: key codec, u32 planes, branchless LB."""
 import jax
 
 jax.config.update("jax_enable_x64", True)  # uint64 keys in the reference
@@ -15,32 +15,17 @@ from repro_torch.kernels import common
 EXTREMES = np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 1], dtype=np.uint64)
 
 
-def test_split_merge_roundtrip():
-    rng = np.random.default_rng(0)
-    a = rng.integers(0, 2**63, 1000, dtype=np.uint64)
-    hi, lo = common.split_u64(a)
-    assert (common.merge_u64(hi, lo) == a).all()
-    rhi, rlo = rcommon.split_u64(a)
-    np.testing.assert_array_equal(hi, rhi)
-    np.testing.assert_array_equal(lo, rlo)
-    b = rng.integers(0, 2**31, 1000).astype(np.int32)
-    hi32, lo32 = common.split_u64(b)
-    assert (hi32 == 0).all() and (lo32 == b.astype(np.uint32)).all()
-
-
 def test_split_encoded_tensor_matches_numpy_planes():
+    """`key_halves` splits encoded keys into the reference's u32 planes."""
     rng = np.random.default_rng(1)
     a = np.concatenate([rng.integers(0, 2**64 - 1, 1000, dtype=np.uint64),
                         EXTREMES])
-    hi, lo = common.split_u64(common.encode_keys(a, "cpu"))
+    hi, lo = common.key_halves(common.encode_keys(a, "cpu"))
     rhi, rlo = rcommon.split_u64(a)
     np.testing.assert_array_equal(hi.numpy(), rhi.astype(np.int64))
     np.testing.assert_array_equal(lo.numpy(), rlo.astype(np.int64))
-    assert (common.merge_u64(hi.numpy(), lo.numpy()) == a).all()
-    narrow = torch.tensor([-1, 0, 7], dtype=torch.int32)
-    hi32, lo32 = common.split_u64(narrow)
-    assert hi32.tolist() == [0, 0, 0]
-    assert lo32.tolist() == [2**32 - 1, 0, 7]
+    assert ((hi.numpy().astype(np.uint64) << np.uint64(32))
+            | lo.numpy().astype(np.uint64) == a).all()
 
 
 def test_codec_order_and_sentinels():
@@ -105,14 +90,6 @@ def test_branchless_lower_bound_matches_reference(index_dtype, side):
 def test_small_helpers_match_reference():
     for w in [0, 1, 2, 3, 127, 128, 129, 2047, 2048, 2049, 10**6, 2**31]:
         assert common.lb_steps(w) == rcommon.lb_steps(w)
-        assert common.pad_pow2(w) == rcommon.pad_pow2(w)
-        assert common.pad_to(w, 2048) == rcommon.pad_to(w, 2048)
-    rng = np.random.default_rng(5)
-    a, b = (rng.integers(0, 4, (2, 400), dtype=np.uint32) for _ in range(2))
-    np.testing.assert_array_equal(
-        common.less_u64(*map(torch.from_numpy, (*a.astype(np.int64),
-                                                *b.astype(np.int64)))).numpy(),
-        np.asarray(rcommon.less_u64(*a, *b)))
 
 
 def test_resolve_device():

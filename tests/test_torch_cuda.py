@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import plan, rmi
+from repro_torch.core import hashmap, plan, rmi, spec
 from repro_torch.data import sosd
 from repro_torch.kernels.bounded_search import kernel as bs_kernel
 from repro_torch.kernels.bounded_search.ops import (lower_bound_windows,
                                                     lower_bound_windows_plain)
-from repro_torch.kernels.common import encode_keys
+from repro_torch.kernels.common import encode_keys, radix_prefix
 from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 from repro_torch.kernels.rmi_lookup import ops
 
@@ -136,3 +136,94 @@ def test_plan_backends_on_the_card(card):
     p.compile("cuda")(qt)                      # fused: one launch a batch
     assert (rmi_kernel.launch_lookup.launches,
             bs_kernel.launch.launches) == (before[0] + 1, before[1])
+
+
+FAMILIES = [("pgm", {}), ("radix_spline", {}), ("rbs", {}), ("btree", {}),
+            ("ibtree", {}), ("binary_search", {}), ("pgm", {"eps": 8}),
+            ("btree", {"sample": 16})]
+
+
+@pytest.mark.parametrize("name,hyper", FAMILIES,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(FAMILIES)])
+@pytest.mark.parametrize("ds", ["amzn", "face"])
+def test_family_plans_on_the_card(card, ds, name, hyper):
+    """Built on the card: both backends equal np.searchsorted, and the
+    cuda backend is one bounded_search launch a call, no rmi_lookup."""
+    keys = sosd.generate(ds, 300_000, seed=1)
+    q = np.concatenate([sosd.make_queries(keys, 200_000, seed=2),
+                        np.array([0, 1, 2**63, 2**64 - 1], np.uint64),
+                        keys[:1] - np.uint64(1), keys[-1:] + np.uint64(1)])
+    lb = np.searchsorted(keys, q)
+    b = spec.build(spec.IndexSpec(name, hyper), keys, device=card)
+    assert b.device.type == "cuda"
+    p = plan.lower(b, encode_keys(keys, card))
+    qt = encode_keys(q, card)
+    before = (rmi_kernel.launch_lookup.launches, bs_kernel.launch.launches)
+    got = p.compile("cuda")(qt)
+    torch.cuda.synchronize()
+    assert (rmi_kernel.launch_lookup.launches,
+            bs_kernel.launch.launches) == (before[0], before[1] + 1)
+    np.testing.assert_array_equal(got.cpu().numpy(), lb)
+    np.testing.assert_array_equal(p.compile("torch")(qt).cpu().numpy(), lb)
+
+
+def test_robin_hash_on_the_card_launches_nothing(card):
+    keys = sosd.generate("wiki", 300_000, seed=1)
+    q = sosd.make_queries(keys, 200_000, seed=2)
+    b = spec.build(spec.IndexSpec("robin_hash"), keys, device=card)
+    p = plan.lower(b, encode_keys(keys, card))
+    before = (rmi_kernel.launch_lookup.launches, bs_kernel.launch.launches)
+    got = p.compile("cuda")(encode_keys(q, card)).cpu().numpy()
+    assert (rmi_kernel.launch_lookup.launches,
+            bs_kernel.launch.launches) == before
+    pos = {int(k): i for i, k in enumerate(keys)}
+    want = np.array([pos.get(int(k), -1) for k in q])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_u64_arithmetic_on_the_card(card):
+    """int64 wrapping multiply and the masked shift behave on the card as
+    on the CPU, for keys at and above 2^63."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(0, 2**64 - 1, 100_000, dtype=np.uint64, endpoint=True)
+    kmin = encode_keys(k[:1], "cpu")[0]
+    for bits in (13, 29):
+        assert torch.equal(hashmap.hash_slots(encode_keys(k, card), bits).cpu(),
+                           hashmap.hash_slots(encode_keys(k, "cpu"), bits))
+    for shift in (0, 1, 48):
+        assert torch.equal(
+            radix_prefix(encode_keys(k, card), kmin.to(card), shift, 16).cpu(),
+            radix_prefix(encode_keys(k, "cpu"), kmin, shift, 16))
+
+
+def test_plan_transforms_on_the_card(card):
+    """Scan, merged, merged-scan and instrumented lookups of a PGM plan on
+    the card equal the same transforms of the same plan on the CPU."""
+    keys = sosd.generate("osm", 300_000, seed=1)
+    q = sosd.make_queries(keys, 100_000, seed=2)
+    delta = np.setdiff1d(np.random.default_rng(3).integers(
+        int(keys[0]), int(keys[-1]), 5_000, dtype=np.uint64), keys)
+    padded = np.full(8192, 2**64 - 1, np.uint64)
+    padded[:len(delta)] = delta
+    plans = {dev: plan.lower(spec.build(spec.IndexSpec("pgm"), keys,
+                                        device=dev), encode_keys(keys, dev))
+             for dev in (card, torch.device("cpu"))}
+    args = {dev: (encode_keys(q, dev), encode_keys(padded, dev))
+            for dev in plans}
+    n_valid = len(q) - 1_000
+
+    def run(dev):
+        p, (qt, dt) = plans[dev], args[dev]
+        return [*p.compile_scan(16, "cuda")(qt),
+                p.compile_merged("cuda")(qt, dt),
+                *p.compile_merged_scan(16, "cuda")(qt, dt),
+                *p.compile_instrumented("cuda")(qt, n_valid)]
+
+    before = bs_kernel.launch.launches
+    on_card = run(card)
+    torch.cuda.synchronize()
+    assert bs_kernel.launch.launches == before + 4
+    for got, want in zip(on_card, run(torch.device("cpu"))):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(on_card[0].cpu(),
+                       torch.from_numpy(np.searchsorted(keys, q)))

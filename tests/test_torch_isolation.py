@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import rmi, spec
+from repro_torch.core import pgm, rmi, spec
 from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import ops
 
@@ -34,7 +34,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout)
-    assert res["modules"] >= 20
+    assert res["modules"] >= 30
     assert res["bad"] == [], f"port pulled in {res['bad']}"
 
 
@@ -55,8 +55,15 @@ KEYS = np.arange(1, 1_001, dtype=np.uint64) * 7
         {"coeffs": np.array([1.0, 0.0]), "a2": np.zeros(4), "b2": np.zeros(4),
          "x0": np.float64(7.0), "inv_range": np.float64(1.0)},
         KEYS, {"branching": 4}),
+    lambda: pgm.build(KEYS),
+    lambda: spec.build(spec.IndexSpec("binary_search"), KEYS),
+    lambda: spec.build(spec.IndexSpec("robin_hash"), KEYS),
+    lambda: convert.from_reference(
+        "rbs", {"table": np.arange(3), "kmin": np.uint64(7)}, KEYS,
+        {"radix_bits": 1, "last_mile": "binary"}),
 ], ids=["rmi.build", "spec.build", "encode_keys", "prepare_f32_state",
-        "rmi_from_reference"])
+        "rmi_from_reference", "pgm.build", "binary_search", "robin_hash",
+        "from_reference"])
 def test_device_none_raises_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
