@@ -14,9 +14,11 @@ predict, then ``bounded_search``) and the ``torch`` backend; 10M queries in
 batches of 1M, every answer held against ``np.searchsorted`` on the host.
 
 Per cell, after the main path: the device's idle share over the fused
-path's 10 batches, and on amzn a ``torch.profiler`` window over them
-(device time by kernel, idle share); the kernels' device times at the main
-path's shapes beside their plain versions, bounds and
+path's 10 batches (the kernel's own CUDA event pair, recorded by its
+wrapper around each launch inside the host window; the phase fails outside
+[0, 1)), and on amzn a ``torch.profiler``
+window over them (device time by kernel, idle share); the kernels' device
+times at the main path's shapes beside their plain versions, bounds and
 ``torch.searchsorted``, with the last mile timed in turns against its
 earlier design (every query searching the batch's widest window); and the
 spread of the windows.  Then every other index family on the same keys and
@@ -29,9 +31,18 @@ counts, B1's time and probes on its windows, and freed before the next.
 On amzn the plan transforms of the PGM plan (``transforms``: scan, merged
 and merged scan over a delta of 1M absent keys, instrumented with pad
 lanes), and per cell B1 over the binary-search plan's whole-array windows
-beside ``torch.searchsorted`` (a ``timings`` row).  One JSON line per
-phase; any failure exits nonzero.  The last line is the device summary
-``{"ok": true, "device": {...}}``.  Full results go to ``--out``.
+beside ``torch.searchsorted`` (a ``timings`` row).  Then per cell the
+lookup service (``serve``: amzn RMI, wiki PGM, at the serving defaults on
+the cuda backend, 4 read clients and a scan client that each submit
+their whole stream before waiting on any answer, a hot swap onto the
+keys plus the delta on amzn, every answer against ``np.searchsorted`` on
+the generation that served it, one kernel launch a batch, no alert
+firing); on amzn the spec ``Tuner`` over every sweep family on every 10th
+key, both backends timed (``tune``); and last the serve driver
+``python -m repro_torch.launch.serve --mode lookup --doctor`` as a
+subprocess (``driver``).  One JSON line per phase; any failure exits
+nonzero.  The last line is the device summary ``{"ok": true, "device":
+{...}}``.  Full results go to ``--out``.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -77,6 +88,25 @@ TRANSFORMS_CELL = "amzn"       # the plan transforms run over its PGM plan
 SCAN_M = 16                    # records a scan materializes
 DELTA_KEYS = 1_000_000         # absent keys of the merged lookups' delta
 N_VALID = BATCH - 12_345       # lanes the instrumented lookup counts
+# the lookup service per cell: its index at the serving defaults on the
+# cuda backend, 4 read clients and one scan client, each submitting its
+# requests without waiting and then resolving them all, as the reference's
+# serve driver does (src/repro/launch/serve.py:127-130, 64 keys a request
+# in its usage line :12); on SWAP_CELL a hot swap onto the cell's keys plus
+# the delta halfway through the reads
+SERVE_INDEX = {"amzn": "rmi", "wiki": "pgm"}
+SERVE_CLIENTS = 4
+SERVE_READS = 2_500            # read requests a client
+SERVE_SCANS = 250              # scan requests of the scan client
+SERVE_KEYS = 64                # keys a request
+SWAP_CELL = "amzn"
+TUNE_CELL = "amzn"
+TUNE_STRIDE = 10               # the tuner sees every 10th key of the cell
+TUNE_MAX_BYTES = 1 << 20
+TUNE_CONFIGS = 3               # rungs a ladder
+TUNE_QUERIES = 1_000_000       # queries the chosen plan answers
+DRIVER_SPEC = {"index": "rmi", "hyper": {"branching": 4096},
+               "backend": "cuda"}
 
 
 class SmokeFailure(RuntimeError):
@@ -345,18 +375,23 @@ def phase_main_path(dev, dataset, cell, args, log, totals):
 
 
 def phase_profile(p, qt, dataset, log, trace: bool):
-    """The fused path's 10 batches on the host clock against 10 times the
-    fused kernel's CUDA-event time, which gives the device's idle share;
-    with ``trace``, also a torch.profiler window over the same 10 batches:
-    device time by kernel, device events a batch, and the idle share it
-    shows.  Only the first cell asks for the trace: on an H100 the first
-    profiler session of a process recorded all 10 kernels, a second one
-    3 of its 10, and one after a traced warm-up cycle none."""
+    """The fused path's 10 batches on the host clock, with the wrapper's
+    own CUDA event pair around each kernel launch (``timed``) inside that
+    same window: the kernels' device time over the window is the
+    device's busy share, and the phase fails unless the idle share lies
+    in [0, 1).  With ``trace``, also a torch.profiler window over the
+    same 10 batches: device time by kernel, device events a batch, the
+    idle share it shows, and what the profiler adds to the window.  Only
+    the first cell asks for the trace: on an H100 the first profiler
+    session of a process recorded all 10 kernels, a second one 3 of its
+    10, and one after a traced warm-up cycle none."""
     import torch
+    from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
     fn = p.compile("cuda")
     batches = QUERIES // BATCH
 
     def window():
+        """Host-clock microseconds over the 10 batches."""
         t0 = time.perf_counter()
         for i in range(0, QUERIES, BATCH):
             fn(qt[i:i + BATCH])
@@ -364,14 +399,23 @@ def phase_profile(p, qt, dataset, log, trace: bool):
         return (time.perf_counter() - t0) * 1e6
 
     window()
-    plain_wall_us = window()
-    kernel_us = cuda_ms(lambda: fn(qt[:BATCH])) * 1e3
+    rmi_kernel.launch_lookup.timed = timed = []
+    try:
+        plain_wall_us = window()
+    finally:
+        rmi_kernel.launch_lookup.timed = None
+    kernel_us = [a.elapsed_time(b) * 1e3 for a, b in timed]
+    check(len(kernel_us) == batches,
+          f"{dataset} profile timed {len(kernel_us)} launches, not {batches}")
+    idle = 1 - sum(kernel_us) / plain_wall_us
     rec = {"phase": "profile", "dataset": dataset, "backend": "cuda_fused",
            "batches": batches, "unprofiled_wall_us": plain_wall_us,
-           "kernel_us_per_batch_events": kernel_us,
-           "idle_share_unprofiled": 1 - batches * kernel_us / plain_wall_us}
+           "kernel_us_per_launch_events": kernel_us,
+           "kernel_us_sum_events": sum(kernel_us),
+           "idle_share_unprofiled": idle}
     if not trace:
         emit(rec, log)
+        check(0 <= idle < 1, f"{dataset} idle share {idle} outside [0, 1)")
         return rec
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -401,11 +445,18 @@ def phase_profile(p, qt, dataset, log, trace: bool):
         "device_events_per_batch": len(device) / batches,
         "by_kernel": by_name, "device_busy_us": busy,
         "device_span_us": span,
+        # the profiler's own host cost: its window less the same 10
+        # batches without it
+        "profiler_added_wall_us": wall_us - plain_wall_us,
         "idle_share_of_wall": (1 - busy / wall_us) if device else None,
-        "idle_share_of_span": (1 - busy / span) if span else None})
+        "idle_share_of_span": (1 - busy / span) if span else None,
+        # the profiler's busy time over the window without the profiler
+        "profiler_busy_idle_share_unprofiled":
+            (1 - busy / plain_wall_us) if device else None})
     if not device:
         rec["note"] = "the profiler showed no device time"
     emit(rec, log)
+    check(0 <= idle < 1, f"{dataset} idle share {idle} outside [0, 1)")
     return rec
 
 
@@ -645,6 +696,24 @@ def phase_families(dev, dataset, cell, data, args, log, totals, errs):
     return out
 
 
+def absent_delta(cell):
+    """``DELTA_KEYS`` sorted keys absent from the cell's keys, drawn
+    uniformly between its ends (seeded), made once a cell: the merged
+    lookups' delta and the serve phase's hot-swap addition."""
+    import numpy as np
+    if "delta" not in cell:
+        keys, n = cell["keys"], len(cell["keys"])
+        rng = np.random.default_rng(SCAN_M)
+        cand = np.unique(rng.integers(int(keys[0]), int(keys[-1]),
+                                      DELTA_KEYS + DELTA_KEYS // 4,
+                                      dtype=np.uint64))
+        hit = keys[np.minimum(np.searchsorted(keys, cand), n - 1)] == cand
+        cand = cand[~hit]
+        cell["delta"] = np.sort(cand[rng.choice(len(cand), DELTA_KEYS,
+                                                replace=False)])
+    return cell["delta"]
+
+
 def phase_transforms(p, cell, log, totals):
     """The plan transforms over one 1M batch of the PGM plan, each on the
     cuda backend: scan, merged and merged scan against a delta of 1M
@@ -654,16 +723,10 @@ def phase_transforms(p, cell, log, totals):
     from repro_torch.core import plan
     from repro_torch.kernels.common import decode_keys, encode_keys
 
-    keys, n = cell["keys"], len(cell["keys"])
+    keys = cell["keys"]
     q0 = cell["qt"][:BATCH].contiguous()
     q0_np, lb0 = cell["queries"][:BATCH], cell["lb"][:BATCH]
-    rng = np.random.default_rng(SCAN_M)
-    cand = np.unique(rng.integers(int(keys[0]), int(keys[-1]),
-                                  DELTA_KEYS + DELTA_KEYS // 4,
-                                  dtype=np.uint64))
-    hit = keys[np.minimum(np.searchsorted(keys, cand), n - 1)] == cand
-    cand = cand[~hit]
-    delta = np.sort(cand[rng.choice(len(cand), DELTA_KEYS, replace=False)])
+    delta = absent_delta(cell)
     pad = 1 << (DELTA_KEYS - 1).bit_length()
     padded = np.full(pad, np.iinfo(np.uint64).max, np.uint64)
     padded[:DELTA_KEYS] = delta
@@ -755,6 +818,308 @@ def phase_whole_array(p, q0, dataset, log):
     return rec
 
 
+def serve_check(key_sets, q, res, v0: int, v1: int, scan: bool) -> bool:
+    """Whether one request's answer is `np.searchsorted` (and, for a
+    scan, the sentinel-padded window) on the key set of some generation
+    between the one current at its submit (``v0``) and at its result."""
+    import numpy as np
+    for v in range(v0, v1 + 1):
+        ks = key_sets[v]
+        lb = np.searchsorted(ks, q)
+        if not scan:
+            if np.array_equal(res, lb):
+                return True
+            continue
+        idx = lb[:, None] + np.arange(SCAN_M)[None, :]
+        want = np.where(idx < len(ks), ks[np.minimum(idx, len(ks) - 1)],
+                        np.iinfo(np.uint64).max)
+        if np.array_equal(res[0], lb) and np.array_equal(res[1], want):
+            return True
+    return False
+
+
+def phase_serve(dev, dataset, cell, log, totals):
+    """The lookup service on the cell's keys through its public entry
+    points: the cell's index at the serving defaults on the cuda backend
+    (sync executor, health and trace on, default batch and deadline,
+    flusher thread), 4 read clients of 2,500 requests and one scan client
+    of 250, every request 64 keys of the cell's query stream.  A client
+    submits a burst of requests without waiting, then resolves them all
+    (open loop, as the reference's driver submits).  Each client's
+    stream is one burst; on SWAP_CELL a reader's is two: once every
+    reader has submitted half of its stream, ``swap_keys`` onto the keys
+    plus the delta, and a reader submits its last quarter only after
+    resolving its first three quarters and seeing the swap return.  Every
+    answer is held against ``np.searchsorted`` on the key set of a
+    generation current between its submit and its result, so a request
+    submitted after the swap returned must match the new set.  Launch counts cover the whole
+    serving window, swap included."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.common import encode_keys
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys, queries = cell["keys"], cell["queries"]
+    swap = dataset == SWAP_CELL
+    union = None
+    if swap:
+        delta = absent_delta(cell)
+        union = np.insert(keys, np.searchsorted(keys, delta), delta)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=default_spec(SERVE_INDEX[dataset], backend="cuda"), trace=True),
+        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    v_first = svc.generation.version
+    key_sets = {v_first: keys}
+    if swap:                       # the one publisher: the next version
+        key_sets[v_first + 1] = union
+    n_read = SERVE_CLIENTS * SERVE_READS * SERVE_KEYS
+    reads = queries[:n_read].reshape(SERVE_CLIENTS, SERVE_READS, SERVE_KEYS)
+    scans = queries[n_read:n_read + SERVE_SCANS * SERVE_KEYS].reshape(
+        SERVE_SCANS, SERVE_KEYS)
+    halfway = [threading.Event() for _ in range(SERVE_CLIENTS)]
+    held = [0.0] * SERVE_CLIENTS       # when each reader began to wait
+    swapped = threading.Event()
+    if not swap:
+        swapped.set()
+    lock = threading.Lock()
+    tally = {"bad": 0, "checked": 0, "after_swap": 0, "errors": []}
+
+    def settle(item, scan):
+        q, v0, fut = item
+        res = fut.result(timeout=900)
+        v1 = svc.generation.version
+        ok = serve_check(key_sets, q, res, v0, v1, scan)
+        with lock:
+            tally["checked"] += 1
+            tally["bad"] += not ok
+            tally["after_swap"] += v0 > v_first
+
+    def client(rows, scan, c=None):
+        cut = 3 * len(rows) // 4 if swap and c is not None else len(rows)
+        try:
+            for burst in (range(cut), range(cut, len(rows))):
+                if burst.start and burst:
+                    held[c] = time.perf_counter()
+                    if not swapped.wait(timeout=900):
+                        raise TimeoutError("swap_keys did not return")
+                pend = []
+                for i in burst:
+                    if c is not None and i == len(rows) // 2:
+                        halfway[c].set()
+                    v0 = svc.generation.version
+                    q = rows[i]
+                    pend.append((q, v0, svc.scan(q, SCAN_M) if scan
+                                 else svc.submit(q)))
+                for item in pend:
+                    settle(item, scan)
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            with lock:
+                tally["errors"].append(repr(e))
+        finally:
+            if c is not None:
+                halfway[c].set()
+
+    threads = [threading.Thread(target=client, args=(reads[c], False, c))
+               for c in range(SERVE_CLIENTS)]
+    threads.append(threading.Thread(target=client, args=(scans, True)))
+    timing = {}
+
+    def serve():
+        svc.start()
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        if swap:
+            for h in halfway:
+                h.wait(timeout=900)
+            ts = time.perf_counter()
+            svc.swap_keys(union)
+            timing["swap_s"] = time.perf_counter() - ts
+            swapped.set()
+            t_swapped = time.perf_counter()
+        for t in threads:
+            t.join(timeout=1800)
+        timing["wall_s"] = time.perf_counter() - t_start
+        # the time every reader sat waiting for the swap to return
+        timing["hold_s"] = max(0.0, t_swapped - max(held)) if swap else 0.0
+        svc.stop()
+
+    _, launched = driven(serve)
+    check(not any(t.is_alive() for t in threads), f"{dataset} serve hung")
+    snap = svc.metrics.snapshot()
+    spans = svc.recorder.spans()
+    devices = sorted((s for s in spans if s.name == "device"),
+                     key=lambda s: s.t0)
+    first, first_ids = [], set()     # the first batch after each publish
+    for pub in (s for s in spans if s.name == "publish"):
+        nxt = next((d for d in devices if d.t0 >= pub.t0), None)
+        first.append({"version": pub.args["version"],
+                      "first_batch_ms": nxt.dur * 1e3 if nxt else None,
+                      "padded": nxt.args["padded"] if nxt else None})
+        if nxt is not None:
+            first_ids.add(id(nxt))
+    steady = np.array([d.dur for d in devices
+                       if id(d) not in first_ids]) * 1e3
+    gen = svc.generation
+    q4 = encode_keys(queries[:svc.cfg.max_batch], dev)
+    per_batch = {"plain_ms": cuda_ms(lambda: gen.fn(q4)),
+                 "instrumented_ms": cuda_ms(
+                     lambda: gen.instrumented_fn()(q4, q4.shape[0])),
+                 "keys": int(q4.shape[0])}
+    h = svc.health_snapshot(window_s=timing["wall_s"] + 10.0)
+    svc.check_alerts()
+    firing = svc.alerts.firing()
+    kernel = "rmi_lookup" if gen.plan.name == "rmi" else "bounded_search"
+    n_req = SERVE_CLIENTS * SERVE_READS + SERVE_SCANS
+    rec = {
+        "phase": "serve", "dataset": dataset, "n": len(keys),
+        "spec": gen.spec.to_dict(), "executor": svc.cfg.executor,
+        "max_batch": svc.cfg.max_batch, "deadline_ms": svc.cfg.deadline_ms,
+        "clients": SERVE_CLIENTS, "reads_per_client": SERVE_READS,
+        "scans": SERVE_SCANS, "keys_per_request": SERVE_KEYS,
+        "scan_length": SCAN_M, "submission": "open_loop",
+        "setup_s": setup_s, **timing,
+        "requests": n_req, "checked": tally["checked"],
+        "wrong": tally["bad"], "after_swap": tally["after_swap"],
+        "client_errors": tally["errors"],
+        "requests_per_s": n_req / timing["wall_s"],
+        "keys_per_s": n_req * SERVE_KEYS / timing["wall_s"],
+        "requests_per_s_outside_hold": n_req / (timing["wall_s"]
+                                                - timing["hold_s"]),
+        "keys_per_s_outside_hold": n_req * SERVE_KEYS / (
+            timing["wall_s"] - timing["hold_s"]),
+        "metrics_lookups_per_s": snap["lookups_per_s"],
+        "p50_request_ms": snap["p50_request_ms"],
+        "p99_request_ms": snap["p99_request_ms"],
+        "p99_queue_ms": snap["p99_queue_ms"],
+        "p50_batch_ms": snap["p50_batch_ms"],
+        "p99_batch_ms": snap["p99_batch_ms"],
+        "first_batch_after_publish": first,
+        "device_span_ms_steady": {
+            "p50": float(np.percentile(steady, 50)) if steady.size else None,
+            "p99": float(np.percentile(steady, 99)) if steady.size else None},
+        "batches": snap["batches"],
+        "mean_keys_per_batch": snap["lookups"] / max(snap["batches"], 1),
+        "mean_occupancy": snap["mean_occupancy"],
+        "launches": launched,
+        "launches_per_batch": launched[kernel] / max(snap["batches"], 1),
+        "health": {k: h[k] for k in (
+            "generation_version", "health_n", "disp_p50", "disp_p99",
+            "disp_max", "build_disp_p99", "disp_p99_ratio",
+            "bound_utilization_p99", "mean_bound_width",
+            "mean_last_mile_steps", "drift_tv", "drift_n")},
+        "max_err": gen.plan.bounds.max_err,
+        "per_batch_health_cost": per_batch,
+        "alerts_firing": firing,
+        "trace_spans": len(svc.recorder),
+        "trace_dropped": svc.recorder.n_dropped,
+        "staging_allocs": svc.dispatcher.staging_allocs,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit(rec, log)
+    check(not tally["errors"], f"{dataset} serve clients failed: "
+          f"{tally['errors'][:3]}")
+    check(tally["checked"] == n_req and tally["bad"] == 0,
+          f"{dataset} serve: {tally['bad']} wrong of {tally['checked']}")
+    check(not swap or tally["after_swap"] > 0,
+          f"{dataset} serve: no request met the swapped generation")
+    check(launched == {k: snap["batches"] if k == kernel else 0
+                       for k in launched},
+          f"{dataset} serve launched {launched} over {snap['batches']} "
+          "batches")
+    check(not firing, f"{dataset} serve: alerts firing {firing}")
+    for k, v in launched.items():
+        totals[k] += v
+    del svc, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tune(dev, cell, args, log, totals):
+    """`spec.Tuner` over every sweep family on every 10th key of the cell
+    (20M at the default size) under a 1 MiB budget, three rungs a ladder,
+    measuring both backends on the card; the chosen spec's plan then
+    answers 1M queries on the chosen backend against np.searchsorted."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import plan, spec
+    from repro_torch.data import sosd
+    from repro_torch.kernels.common import encode_keys
+
+    keys = np.ascontiguousarray(cell["keys"][::TUNE_STRIDE])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tuner = spec.Tuner(max_bytes=TUNE_MAX_BYTES, backends=("torch", "cuda"),
+                       max_configs=TUNE_CONFIGS)
+    t0 = time.perf_counter()
+    res = tuner.tune(keys, device=dev)
+    tune_s = time.perf_counter() - t0
+    p = plan.lower(res.build, encode_keys(keys, dev))
+    q = sosd.make_queries(keys, TUNE_QUERIES, seed=args.seed)
+    qt = encode_keys(q, dev)
+    fn = p.compile(res.spec.backend)
+    got, launched = driven(lambda: fn(qt))
+    exact = bool(np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q)))
+    kernel = "rmi_lookup" if p.name == "rmi" else "bounded_search"
+    want = {kernel: 1} if res.spec.backend == "cuda" else {}
+    rec = {"phase": "tune", "dataset": TUNE_CELL, "n": len(keys),
+           "max_bytes": TUNE_MAX_BYTES, "max_configs": TUNE_CONFIGS,
+           "names": list(spec.sweep_names()), "spec": res.spec.to_dict(),
+           "size_bytes": res.build.size_bytes,
+           "cost_ns": res.chosen.cost_ns, "backend_ns": res.backend_ns,
+           "evaluated": len(res.evaluated), "frontier": len(res.frontier),
+           "frontier_specs": [c.spec.to_json() for c in res.frontier],
+           "tune_s": tune_s, "queries": TUNE_QUERIES, "exact": exact,
+           "launches": launched,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec, log)
+    check(exact, f"tuned {res.spec.to_json()} != np.searchsorted")
+    check(set(res.backend_ns) == {"torch", "cuda"},
+          f"tuner timed {sorted(res.backend_ns)}")
+    check(res.build.size_bytes <= TUNE_MAX_BYTES, "tuned build over budget")
+    check(launched == {k: want.get(k, 0) for k in launched},
+          f"tuned plan launched {launched}")
+    for k, v in launched.items():
+        totals[k] += v
+    del res, p, fn, qt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_driver(log):
+    """The serve driver as a user runs it, at its defaults, with
+    ``--doctor`` and an RMI spec on the cuda backend: it must exit 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+           "lookup", "--doctor", "--spec", json.dumps(DRIVER_SPEC)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    rec = {"phase": "driver", "command": " ".join(cmd[1:]),
+           "rc": out.returncode, "seconds": time.perf_counter() - t0,
+           "summary": out.stdout.splitlines(),
+           "stderr_tail": out.stderr.splitlines()[-20:]}
+    emit(rec, log)
+    check(out.returncode == 0, f"serve driver exited {out.returncode}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=200_000_000,
@@ -799,11 +1164,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         families = phase_families(dev, ds, cell, data, args, log, totals,
                                   errs)
-        cells[ds] = {"end_to_end": e2e, "profile": profile,
-                     "kernels": kernels, "families": families}
-        del cell, data
+        del data
         gc.collect()
         torch.cuda.empty_cache()
+        serve = phase_serve(dev, ds, cell, log, totals)
+        cells[ds] = {"end_to_end": e2e, "profile": profile,
+                     "kernels": kernels, "families": families,
+                     "serve": serve}
+        if ds == TUNE_CELL:
+            cells[ds]["tune"] = phase_tune(dev, cell, args, log, totals)
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
     for k in kernels:
         k["launches"] = totals[k["name"]]
@@ -812,7 +1185,7 @@ def main(argv=None) -> int:
                                else 0)
     emit({"phase": "launches", **totals}, log)
     summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
-               "build_wall_s": build_s, "cells": cells,
+               "build_wall_s": build_s, "cells": cells, "driver": driver,
                "total_s": time.perf_counter() - t_start, "log": log}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -42,6 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import base, search
+# the health monitor's histogram geometry: `obs.health` owns it
+from repro_torch.obs.health import (HEALTH_DISP_BUCKETS,  # noqa: F401
+                                    HEALTH_STATS_SIZE,
+                                    HEALTH_TRAFFIC_BUCKETS)
 
 __all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_stats_expr",
            "lower", "pack_health_stats", "register_fused",
@@ -49,14 +53,6 @@ __all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_stats_expr",
 
 #: The backend axis every lookup consumer can select on.
 BACKENDS = ("torch", "cuda")
-
-#: The health monitor's histogram geometry, copied from the reference's
-#: host half (`repro.obs.health`): log2 displacement buckets and
-#: rank-quantized traffic buckets.  The packed stats vector is 5 int64
-#: scalars, then the two histograms.
-HEALTH_DISP_BUCKETS = 24
-HEALTH_TRAFFIC_BUCKETS = 64
-HEALTH_STATS_SIZE = 5 + HEALTH_DISP_BUCKETS + HEALTH_TRAFFIC_BUCKETS
 
 #: Pad of a scan window past the end and of a padded delta: the code of
 #: UINT64_MAX.
@@ -172,7 +168,7 @@ def health_stats_expr(pos, lo, hi, n: int, max_err: int, n_valid,
 def pack_health_stats(stats) -> torch.Tensor:
     """One stats dict as a single int64 ``[HEALTH_STATS_SIZE]`` vector: 5
     scalars, then the two histograms (the reference's layout, which
-    `repro.obs.health.unpack_stats` reads)."""
+    `repro_torch.obs.health.unpack_stats` reads)."""
     scalars = torch.stack([
         stats["n"].to(torch.int64), stats["disp_sum"], stats["disp_max"],
         stats["width_sum"], stats["steps_sum"]])

@@ -5,6 +5,11 @@ whole lookup fused into one launch).
 start, and each counts its launches in its own ``.launches``.  They check
 what the kernel takes and raise on anything else; choosing between a
 kernel and its plain version is `ops`'s job.
+
+``launch_lookup.timed`` is None, or a list that each launch appends a
+``(start, end)`` pair of timing CUDA events to, recorded on the launch
+stream just before and just after the kernel: the kernel's own device
+time, without the host work of the call around it.
 """
 from __future__ import annotations
 
@@ -87,11 +92,20 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
     out = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return out
+    lib, timed = _lib(), launch_lookup.timed
     with torch.cuda.device(dev):
-        rc = _lib().rmi_lookup(
+        stream = torch.cuda.current_stream()
+        if timed is not None:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record(stream)
+        rc = lib.rmi_lookup(
             queries.data_ptr(), m, *model_args(state),
             *table_ptrs(state), data.data_ptr(), state.max_err,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), stream.cuda_stream)
+        if timed is not None:
+            pair[1].record(stream)
+            timed.append(pair)
     if rc != 0:
         raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
     launch_lookup.launches += 1
@@ -100,3 +114,4 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
 
 launch_bounds.launches = 0
 launch_lookup.launches = 0
+launch_lookup.timed = None

@@ -1,0 +1,156 @@
+"""Serve driver: learned-index lookup serving on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
+        --dataset amzn --requests 200 --keys-per-request 64
+
+Routes through `repro_torch.serve.lookup`: admission, micro-batching and
+plan-compiled dispatch on the CUDA card (``--device cpu`` asks for the
+CPU, where the kernels' plain versions run).  ``--spec`` takes one
+`IndexSpec` as JSON, which is how the backend is chosen:
+
+    --spec '{"index": "rmi", "hyper": {"branching": 4096}, "backend": "cuda"}'
+
+``--trace-out`` records the run and writes a Chrome-trace JSON,
+``--slo-p99-ms`` arms the windowed error-budget tracking, and index
+health is instrumented by default (``--no-health`` turns it off): the
+summary prints the health line (displacement p99 against the error
+bound, drift) and the alert verdict.  ``--doctor`` exits nonzero when an
+alert is firing at the end of the run or an answer is wrong.
+
+The lookup mode of the reference's `repro.launch.serve`, with its
+synchronous executor: ``--executor`` accepts only ``sync`` until the
+async executor is ported (ROADMAP item 7; the reference defaults to
+``async``).  Token mode waits for the LM scaffolding (item 13), and the
+metrics endpoint and JSONL logger for the exporters (item 9).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def run_lookup(args) -> None:
+    from repro_torch.core import base
+    from repro_torch.core.spec import IndexSpec
+    from repro_torch.data import sosd
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate(args.dataset, args.n_keys, seed=1)
+    # --spec takes one declarative IndexSpec (JSON) over the index name
+    sp = (IndexSpec.from_json(args.spec) if args.spec
+          else default_spec(args.index))
+    t0 = time.time()
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=sp, max_batch=args.max_batch,
+        deadline_ms=args.deadline_ms, executor=args.executor,
+        trace=bool(args.trace_out), slo_p99_ms=args.slo_p99_ms,
+        health=not args.no_health), device=args.device)
+    print(f"serving spec: {svc.generation.spec.to_json()} "
+          f"(executor={args.executor}, device={svc.dispatcher.device}, "
+          f"built in {time.time() - t0:.2f}s)")
+    q = sosd.make_queries(keys, args.requests * args.keys_per_request, seed=2)
+
+    t0 = time.time()
+    with svc:
+        futs = [svc.submit(q[i * args.keys_per_request:
+                             (i + 1) * args.keys_per_request])
+                for i in range(args.requests)]
+        outs = [f.result(timeout=120.0) for f in futs]
+    dt = time.time() - t0
+
+    got = np.concatenate(outs)
+    exact = bool(np.array_equal(got, base.lower_bound_oracle(keys, q)))
+    snap = svc.metrics.snapshot()
+    print(f"{len(q)} lookups / {args.requests} requests in {dt:.2f}s over "
+          f"{svc.dispatcher.n_shards} shard(s): "
+          f"{args.requests / dt:.1f} requests/s, "
+          f"{snap['lookups_per_s']/1e3:.1f} klookups/s, "
+          f"{snap['batches']} batches, "
+          f"occupancy {snap['mean_occupancy']:.2f}, "
+          f"batch p99 {snap['p99_batch_ms']:.2f}ms, "
+          f"queue p99 {snap['p99_queue_ms']:.2f}ms, "
+          f"request p50 {snap['p50_request_ms']:.2f}ms, "
+          f"request p99 {snap['p99_request_ms']:.2f}ms")
+    w = svc.metrics.windowed(args.window_s)
+    line = (f"windowed({w['window_s']:.0f}s): p50 {w['p50_ms']:.2f}ms, "
+            f"p99 {w['p99_ms']:.2f}ms, "
+            f"{w['lookups_per_s']/1e3:.1f} klookups/s")
+    if args.slo_p99_ms is not None:
+        line += (f", SLO p99<{args.slo_p99_ms:.0f}ms: "
+                 f"{w['slo_violations']} violations, "
+                 f"budget burn {w['slo_budget_burn']:.2f}")
+    print(line)
+    if args.trace_out:
+        svc.recorder.save(args.trace_out)
+        print(f"wrote Chrome trace ({len(svc.recorder)} spans, "
+              f"{svc.recorder.n_dropped} dropped) to {args.trace_out}")
+    # health verdict: evaluate the alert rules over the whole run
+    events = svc.check_alerts(window_s=max(args.window_s, dt + 1.0))
+    firing = svc.alerts.firing()
+    if not args.no_health:
+        h = svc.health_snapshot(max(args.window_s, dt + 1.0))
+        print(f"health: disp p99 {h['disp_p99']:.0f} of max_err "
+              f"{svc.generation.plan.bounds.max_err} "
+              f"(bound utilization {h['bound_utilization_p99']:.2f}, "
+              f"{h['disp_p99_ratio']:.2f}x build), "
+              f"last-mile steps {h['mean_last_mile_steps']:.1f}, "
+              f"drift TV {h['drift_tv']:.3f} over {h['drift_n']:.0f} "
+              f"lookups")
+    for e in events:
+        print(f"alert {e['rule']} {e['state']}: {e['key']}={e['value']:.3g} "
+              f"({e['op']} {e['threshold']:.3g}) — {e['action']}")
+    print("alerts: " + (", ".join(firing) if firing else "none firing"))
+    print(f"exact vs lower_bound oracle: {exact}")
+    if args.doctor and (firing or not exact):
+        raise SystemExit(1)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("tokens", "lookup"), default="lookup",
+                    help="lookup serving; token mode waits for the LM "
+                         "scaffolding (ROADMAP item 13)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=2048,
+                    help="keys per dispatch (flush trigger)")
+    ap.add_argument("--dataset", default="amzn",
+                    choices=sorted(("amzn", "face", "osm", "wiki")))
+    ap.add_argument("--index", default="rmi")
+    ap.add_argument("--spec", default=None,
+                    help="IndexSpec JSON (overrides --index), e.g. "
+                         '\'{"index": "pgm", "hyper": {"eps": 32}, '
+                         '"backend": "cuda"}\'')
+    ap.add_argument("--n-keys", type=int, default=200_000)
+    ap.add_argument("--keys-per-request", type=int, default=64)
+    ap.add_argument("--deadline-ms", type=float, default=2.0)
+    ap.add_argument("--executor", choices=("sync",), default="sync",
+                    help="lookup dispatch engine: the serial sync loop "
+                         "(the async executor is ROADMAP item 7)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to serve on (default: the CUDA "
+                         "card; 'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--trace-out", default=None,
+                    help="record request/lifecycle spans and write a "
+                         "Chrome-trace JSON here")
+    ap.add_argument("--slo-p99-ms", type=float, default=None,
+                    help="p99 latency SLO target: windowed snapshots "
+                         "report violations + error-budget burn")
+    ap.add_argument("--window-s", type=float, default=10.0,
+                    help="rolling window the summary reports over")
+    ap.add_argument("--no-health", action="store_true",
+                    help="disable index-health instrumentation; reads "
+                         "dispatch the plain lookup")
+    ap.add_argument("--doctor", action="store_true",
+                    help="one-shot health check: exit 1 when any alert "
+                         "is firing or the oracle check fails")
+    args = ap.parse_args(argv)
+    if args.mode == "tokens":
+        ap.error("--mode tokens needs the LM scaffolding (ROADMAP item 13)")
+    run_lookup(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+"""`repro_torch.serve.lookup`: the batched, async-admission lookup
+service on one device.
+
+Requests carrying small uint64 key arrays are admitted without blocking,
+coalesced by a deadline/size micro-batcher, dispatched as one
+plan-compiled lookup (`repro_torch.core.plan`: index bounds + last-mile
+stage, ``"torch"`` or ``"cuda"`` backend) per batch, and completed
+through per-request futures.  Index generations hot-swap atomically: a
+rebuild on a fresh key set becomes visible between batches, never inside
+one.  The synchronous executor of the reference's service; its async
+executor, mutable service and range-routed topology are later ports.
+"""
+from repro_torch.serve.lookup.admission import (ClientBacklogFull,
+                                                LookupFuture, MicroBatcher)
+from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM,
+                                               ShardedDispatcher, make_plan)
+from repro_torch.serve.lookup.metrics import ServiceMetrics
+from repro_torch.serve.lookup.registry import Generation, IndexRegistry
+from repro_torch.serve.lookup.service import (DEFAULT_HYPER, LookupService,
+                                              LookupServiceConfig,
+                                              default_spec)
+
+__all__ = [
+    "DEFAULT_HYPER",
+    "PAD_QUANTUM",
+    "default_spec",
+    "ClientBacklogFull",
+    "LookupFuture",
+    "MicroBatcher",
+    "ShardedDispatcher",
+    "make_plan",
+    "ServiceMetrics",
+    "Generation",
+    "IndexRegistry",
+    "LookupService",
+    "LookupServiceConfig",
+]

@@ -1,0 +1,451 @@
+"""`LookupService`: admission -> micro-batch -> dispatch, on one device.
+
+Clients `submit()` small uint64 key arrays and get futures; a single
+flusher (the background thread started by `start()`, or explicit
+`flush()`/`drain()` calls) drains the micro-batcher in admission order
+and runs one plan-compiled lookup per batch.  One flusher + in-order
+draining gives FIFO completion per client for free.
+
+Results are LB positions (``D[pos]`` is the smallest key >= query, the
+paper's lower-bound semantics), bit-identical to a direct
+`repro_torch.core` lookup on the same queries and to the reference's
+sync `repro.serve.lookup.LookupService`.
+
+Hot-swap: `swap_keys(new_keys)` rebuilds outside every lock and
+publishes atomically; batches in flight complete against the generation
+they were dispatched with: nothing drains, nothing blocks.
+
+This is the reference's service with its synchronous executor (serial
+take -> launch -> wait -> complete).  Options whose modules are later
+ports raise `NotImplementedError` naming the ROADMAP item: the async
+executor (item 7), range-routed shards (item 10) and autotune (item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import spec as spec_mod
+from repro_torch.obs.alerts import AlertEngine, AlertRule, default_rules
+from repro_torch.obs.health import HealthMonitor
+from repro_torch.obs.trace import SpanRecorder
+from repro_torch.serve.common import MonotonicCounter
+from repro_torch.serve.lookup.admission import LookupFuture, MicroBatcher
+from repro_torch.serve.lookup.dispatch import PAD_QUANTUM, ShardedDispatcher
+from repro_torch.serve.lookup.metrics import ServiceMetrics
+from repro_torch.serve.lookup.registry import Generation, IndexRegistry
+
+
+#: The serving-default hyperparameters (the reference's).
+DEFAULT_HYPER = {
+    "rmi": dict(branching=4096),
+    "pgm": dict(eps=64),
+    "radix_spline": dict(eps=32, radix_bits=16),
+}
+
+
+def default_spec(index: str, backend: str = "torch") -> spec_mod.IndexSpec:
+    """The serving-default `IndexSpec` for one index family."""
+    return spec_mod.IndexSpec(index, dict(DEFAULT_HYPER.get(index, {})),
+                              backend=backend).validated()
+
+
+@dataclasses.dataclass(frozen=True)
+class LookupServiceConfig:
+    """Every field and default of the reference's config, with the
+    port's backends ("torch" | "cuda")."""
+
+    index: str = "rmi"                 # repro_torch.core.base.REGISTRY name
+    hyper: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    last_mile: Optional[str] = None    # None -> the build's own choice
+    backend: str = "torch"             # LookupPlan backend ("torch" | "cuda")
+    max_batch: int = 4096              # keys per dispatch (flush trigger)
+    deadline_ms: float = 2.0           # oldest-request flush deadline
+    #: Per-latency-class flush budgets in ms, e.g. ``{"interactive":
+    #: 1.0, "batch": 20.0}``; unknown classes fall back to
+    #: ``deadline_ms``.  None = one deadline for everything.
+    class_deadline_ms: Optional[Dict[str, float]] = None
+    pad_quantum: int = PAD_QUANTUM
+    max_client_keys: Optional[int] = None   # per-client pending-key cap
+    client_rate: Optional[tuple] = None     # per-client (rate keys/s, burst)
+    max_scan_length: int = 4096             # per-request scan-window cap
+    #: Declarative alternative to index/hyper/backend/last_mile: when
+    #: set, the spec wins WHOLESALE.
+    spec: Optional[spec_mod.IndexSpec] = None
+    #: Dispatch engine: "sync" (serial take -> wait -> complete).  The
+    #: reference's "async" executor is ROADMAP item 7.
+    executor: str = "sync"
+    #: Async in-flight slot ring depth and warm-up shapes: read only by
+    #: the async executor, so a value other than the default raises.
+    slots: int = 4
+    warm_buckets: Tuple[int, ...] = ()
+    warm_scan_lengths: Tuple[int, ...] = ()
+    #: Span recorder (bounded ring of ``trace_capacity`` spans: per-
+    #: request ids from admission through completion, plus hot-swap
+    #: lifecycle spans), exported by ``service.recorder.to_chrome()``.
+    trace: bool = False
+    trace_capacity: int = 65536
+    #: Rolling-window metrics resolution.
+    window_slot_s: float = 0.5
+    window_slots: int = 240
+    #: Optional p99 SLO target: request latencies above it burn error
+    #: budget, reported per window.
+    slo_p99_ms: Optional[float] = None
+    #: Index-health telemetry, on by default: reads dispatch the plan's
+    #: instrumented lookup (bit-identical positions plus device-reduced
+    #: stats a batch) and a `HealthMonitor` keeps per-generation records.
+    health: bool = True
+    #: Alert rules over `health_snapshot()` keys; None -> the shipped
+    #: `default_rules()`, () -> no rules.
+    alert_rules: Optional[Tuple[AlertRule, ...]] = None
+    #: Range-routed serving (``shards > 1``, ``replicas > 1``,
+    #: ``topology``, per-shard tuning): ROADMAP item 10.
+    shards: int = 1
+    replicas: int = 1
+    topology: Optional[Any] = None
+    shard_tuner: Optional[spec_mod.Tuner] = None
+    #: Query-buffer donation, read by the reference's async and routed
+    #: paths only.  Torch has no buffer donation, so this field has no
+    #: effect on any path of the port.
+    donate_queries: Optional[bool] = None
+    #: Self-driving tuning: ROADMAP item 11.
+    autotune: Optional[Any] = None
+
+    def resolved_spec(self) -> spec_mod.IndexSpec:
+        """The validated `IndexSpec` every build of this service uses."""
+        if self.spec is not None:
+            return self.spec.validated()
+        return spec_mod.coerce(self.index, self.hyper,
+                               backend=self.backend,
+                               last_mile=self.last_mile)
+
+
+def _refuse_later_items(cfg: LookupServiceConfig) -> None:
+    """Options whose modules are not ported yet fail loudly, never
+    silently."""
+    if cfg.executor not in ("sync", "async"):
+        raise ValueError(
+            f"executor must be 'sync' or 'async', got {cfg.executor!r}")
+    if cfg.executor == "async":
+        raise NotImplementedError(
+            "executor='async' needs the async executor (ROADMAP item 7)")
+    if cfg.slots != 4 or cfg.warm_buckets or cfg.warm_scan_lengths:
+        raise NotImplementedError(
+            "slots, warm_buckets and warm_scan_lengths configure the async "
+            "executor (ROADMAP item 7)")
+    if cfg.shards > 1 or cfg.replicas != 1 or cfg.topology is not None \
+            or cfg.shard_tuner is not None:
+        raise NotImplementedError(
+            "shards > 1, replicas, topology and shard_tuner need "
+            "range-routed serving (ROADMAP item 10)")
+    if cfg.autotune is not None:
+        raise NotImplementedError("autotune needs the autotune port "
+                                  "(ROADMAP item 11)")
+
+
+class LookupService:
+    def __init__(self, keys: np.ndarray,
+                 config: Optional[LookupServiceConfig] = None,
+                 device=None, counter: Optional[MonotonicCounter] = None):
+        """Serve lookups over ``keys`` on ``device`` (None: the CUDA
+        card)."""
+        self.cfg = config if config is not None else LookupServiceConfig()
+        _refuse_later_items(self.cfg)
+        #: span recorder, or None when tracing is off: every
+        #: instrumentation site on the serve path shares this one object
+        self.recorder = (SpanRecorder(self.cfg.trace_capacity)
+                         if self.cfg.trace else None)
+        self.registry = IndexRegistry(device=device)
+        self.registry.recorder = self.recorder
+        #: per-generation health monitor, or None when disabled: attached
+        #: BEFORE the first publish so the first generation has a record
+        self.health = (HealthMonitor(slot_s=self.cfg.window_slot_s,
+                                     n_slots=self.cfg.window_slots)
+                       if self.cfg.health else None)
+        self.registry.health = self.health
+        #: alert engine: always present (rules may be empty); evaluates
+        #: only when asked (`check_alerts`, the driver's doctor report)
+        self.alerts = AlertEngine(
+            rules=(default_rules() if self.cfg.alert_rules is None
+                   else self.cfg.alert_rules))
+        self.dispatcher = ShardedDispatcher(
+            device=self.registry.device, pad_quantum=self.cfg.pad_quantum,
+            recorder=self.recorder)
+        self.metrics = ServiceMetrics(
+            slo_p99_ms=self.cfg.slo_p99_ms,
+            window_slot_s=self.cfg.window_slot_s,
+            window_slots=self.cfg.window_slots)
+        self.batcher = MicroBatcher(
+            self.cfg.max_batch, self.cfg.deadline_ms / 1e3,
+            counter=counter if counter is not None else MonotonicCounter(),
+            max_client_keys=self.cfg.max_client_keys,
+            client_rate=self.cfg.client_rate,
+            recorder=self.recorder,
+            class_deadlines=(
+                {k: v / 1e3
+                 for k, v in self.cfg.class_deadline_ms.items()}
+                if self.cfg.class_deadline_ms is not None else None))
+        self._dispatch_lock = threading.Lock()   # one batch at a time
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.swap_keys(keys)
+
+    # -- index lifecycle -------------------------------------------------
+    def swap_keys(self, keys: np.ndarray) -> Generation:
+        """Rebuild on a fresh key set and hot-swap it in (no draining).
+        Builds go through the config's resolved `IndexSpec`, so the
+        published generation is spec-addressable (`Generation.spec`)."""
+        return self.registry.build_and_publish(
+            self.cfg.resolved_spec(), np.asarray(keys, dtype=np.uint64))
+
+    @property
+    def generation(self) -> Generation:
+        return self.registry.current()
+
+    # -- client surface --------------------------------------------------
+    def submit(self, keys, client=None,
+               priority: str = "interactive") -> LookupFuture:
+        """Admit one request; never blocks.  Completion needs a flusher:
+        the background thread (`start()`/`with svc:`) or explicit
+        `flush()`/`drain()` calls.  ``client`` is an optional fairness id
+        (`max_client_keys`, `client_rate`: an over-limit submit raises
+        `ClientBacklogFull`); ``priority`` is the latency class."""
+        _, fut = self.batcher.submit(keys, client=client,
+                                     priority=priority)
+        return fut
+
+    def scan(self, keys, length: int, client=None) -> LookupFuture:
+        """Admit one range-scan request: the future resolves to
+        ``(positions, window)`` where ``window[i]`` holds the ``length``
+        records from ``LB(keys[i])`` as uint64 (``UINT64_MAX`` past the
+        end)."""
+        # the window is a [B, length] gather, so the client-supplied
+        # length is bounded
+        gen = self.generation
+        max_len = self.cfg.max_scan_length
+        if not 1 <= length <= max_len:
+            raise ValueError(f"scan length must be in [1, {max_len}]")
+        # reject point-only indexes at admission; the per-group guard in
+        # _complete_run still covers a hot-swap to a point-only index
+        if gen.plan.point_only:
+            raise ValueError(
+                f"index {gen.plan.name!r} is point-only: no scans")
+        _, fut = self.batcher.submit(keys, kind="scan", aux=int(length),
+                                     client=client)
+        return fut
+
+    def lookup(self, keys, timeout: Optional[float] = 30.0) -> np.ndarray:
+        """Synchronous convenience: submit + ensure progress + wait."""
+        fut = self.submit(keys)
+        if self._thread is None:
+            self.drain()
+        return fut.result(timeout)
+
+    # -- flushing --------------------------------------------------------
+    def _dispatch_once(self, force: bool = False) -> bool:
+        """Take + process one batch; returns whether one was taken.
+        Serialized by `_dispatch_lock`: take order == dispatch order ==
+        completion order, which is the FIFO guarantee."""
+        with self._dispatch_lock:
+            batch = self.batcher.take(force=force)
+            if not batch:
+                return False
+            self._process_batch(batch)
+            return True
+
+    @staticmethod
+    def _runs(batch, key):
+        """Yield maximal consecutive runs of ``batch`` sharing
+        ``key(req)``, in order."""
+        i = 0
+        while i < len(batch):
+            j = i
+            while j < len(batch) and key(batch[j]) == key(batch[i]):
+                j += 1
+            yield batch[i:j]
+            i = j
+
+    def _process_batch(self, batch) -> None:
+        """Split the taken batch into consecutive same-kind runs and
+        dispatch each; admission order holds within and across runs.
+        The generation is pinned ONCE for the whole batch: a hot-swap
+        lands between batches, never inside one."""
+        ctx = self._pin_context()
+        for run in self._runs(batch, key=lambda r: r.kind):
+            self._dispatch_run(run[0].kind, run, ctx)
+
+    def _dispatch_run(self, kind: str, run, ctx) -> None:
+        lookup_fn, scan_for, version = ctx
+        if kind == "scan":
+            self._dispatch_scans(run, scan_for)
+        else:
+            self._dispatch_reads(run, lookup_fn, version)
+
+    def _pin_context(self):
+        """``(lookup_fn, m -> scan callable, version)`` bound to ONE
+        immutable generation.  With health on, ``lookup_fn`` is the
+        plan's INSTRUMENTED lookup; ``version`` routes its stats to the
+        right record."""
+        gen = self.registry.current()
+        if self.health is not None:
+            return gen.instrumented_fn(), gen.scan_fn, gen.version
+        return gen.fn, gen.scan_fn, gen.version
+
+    def _complete_run(self, group, make_fn, version: int = -1,
+                      instrumented: bool = False) -> None:
+        """Dispatch one request group through ``make_fn()`` and complete
+        its futures in order.  Failures fail the group's futures, never
+        the flusher, including failures to make the callable (a scan of
+        a point-only plan).  Instrumented reads fold the stats into the
+        health record of ``version``; futures never see them."""
+        keys = (group[0].keys if len(group) == 1
+                else np.concatenate([r.keys for r in group]))
+        t0 = time.perf_counter()
+        try:
+            out = self.dispatcher(make_fn(), keys,
+                                  n_valid_arg=instrumented)
+        except BaseException as e:  # noqa: BLE001 — fail the group, not the flusher
+            for r in group:
+                r.future._set_exception(e)
+            return
+        t1 = time.perf_counter()
+        if instrumented:
+            out, stats = out
+            self._note_health(version, stats, t1)
+        self._finish_group(group, out, t0, t1, keys.size,
+                           self.dispatcher.padded_size(keys.size))
+
+    def _finish_group(self, group, out, t0: float, t1: float,
+                      n_keys: int, padded: int) -> None:
+        """Slice the batch result per request in admission order, resolve
+        futures, record request spans, and fold the batch into the
+        metrics."""
+        off = 0
+        for r in group:
+            end = off + r.keys.size
+            r.future._set_result(tuple(o[off:end] for o in out)
+                                 if isinstance(out, tuple) else out[off:end])
+            off = end
+        if self.recorder is not None:
+            for r in group:
+                self.recorder.request(r.rid, kind=r.kind,
+                                      n_keys=r.keys.size,
+                                      t_submit=r.t_submit,
+                                      t_launch=t0, t_end=t1)
+        self.metrics.observe_batch(
+            n_keys=n_keys,
+            padded=padded,
+            n_requests=len(group),
+            t_oldest_submit=group[0].t_submit,
+            t_start=t0, t_end=t1,
+            per_request=[(r.t_submit, r.keys.size, r.priority)
+                         for r in group])
+
+    def _dispatch_reads(self, batch, lookup_fn, version: int = -1) -> None:
+        self._complete_run(batch, lambda: lookup_fn, version=version,
+                           instrumented=self.health is not None)
+
+    def _dispatch_scans(self, batch, scan_for) -> None:
+        """Dispatch a run of scan requests, grouped by scan length (the
+        window width is a shape axis).  Futures resolve to ``(positions,
+        window)`` per request."""
+        for group in self._runs(batch, key=lambda r: r.aux):
+            m = int(group[0].aux)
+            self._complete_run(group, lambda m=m: scan_for(m))
+
+    # -- index-health telemetry --------------------------------------------
+    def _note_health(self, version: int, stats, t_end: float) -> None:
+        """Fold one completed batch's device-reduced stats into the
+        health record of the generation it ran against."""
+        if self.health is not None:
+            self.health.accumulate(version, stats, t=t_end)
+
+    def health_snapshot(self, window_s: float = 10.0) -> Dict[str, float]:
+        """ONE flat key namespace over service + window + model health,
+        what alert rules evaluate: the lifetime `ServiceMetrics`
+        snapshot, the trailing-window metrics under a ``window_`` prefix
+        (``window_covered_s`` reports actual coverage), and the current
+        generation's health keys."""
+        snap = self.metrics.snapshot()
+        win = self.metrics.windowed(window_s)
+        snap["window_covered_s"] = win.pop("window_s")
+        snap.update({f"window_{k}": v for k, v in win.items()})
+        if self.health is not None:
+            snap.update(self.health.snapshot(window_s))
+        snap["trace_dropped"] = float(self.recorder.n_dropped
+                                      if self.recorder is not None else 0)
+        snap["inflight_saturation"] = 0.0    # no slot ring on sync
+        snap["serving"] = 1.0 if self._thread is not None else 0.0
+        return snap
+
+    def check_alerts(self, window_s: float = 10.0) -> list:
+        """Evaluate every alert rule against a fresh `health_snapshot`;
+        returns the events emitted by THIS evaluation (state transitions
+        only)."""
+        return self.alerts.evaluate(self.health_snapshot(window_s))
+
+    def health_status(self, window_s: float = 10.0):
+        """``(http_status, doc)`` for liveness surfaces: 503 when the
+        background flusher is not running or a critical alert is firing,
+        200 otherwise.  Evaluates the rules first."""
+        self.check_alerts(window_s)
+        firing = self.alerts.firing()
+        critical = self.alerts.firing(severity="critical")
+        serving = self._thread is not None
+        ok = serving and not critical
+        doc = {"status": "ok" if ok else "unhealthy",
+               "serving": serving,
+               "firing": firing, "critical": critical}
+        return (200 if ok else 503), doc
+
+    def flush(self) -> bool:
+        """Dispatch one due batch if any (size or deadline trigger)."""
+        return self._dispatch_once(force=False)
+
+    def drain(self) -> int:
+        """Force-dispatch until the queue is empty; returns batch count."""
+        n = 0
+        while self._dispatch_once(force=True):
+            n += 1
+        return n
+
+    # -- background flusher ----------------------------------------------
+    def start(self) -> "LookupService":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def _loop():
+            while not self._stop.is_set():
+                if self.batcher.wait_ready(timeout=5.0,
+                                           until=self._stop.is_set):
+                    self._dispatch_once(force=False)
+            self.drain()   # complete everything admitted before stop()
+
+        self._thread = threading.Thread(
+            target=_loop, name="lookup-flusher", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the background flusher, completing everything admitted so
+        far.  The service stays usable afterwards (submit + flush/drain,
+        or a later start())."""
+        if self._thread is None:
+            return
+        self._stop.set()
+        self.batcher.wake()
+        self._thread.join()
+        self._thread = None
+        self.drain()       # anything admitted during the join window
+        self._stop.clear()
+
+    def __enter__(self) -> "LookupService":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

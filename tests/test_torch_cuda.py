@@ -138,6 +138,29 @@ def test_plan_backends_on_the_card(card):
             bs_kernel.launch.launches) == (before[0] + 1, before[1])
 
 
+def test_fused_wrapper_times_each_launch_when_asked(card):
+    """``launch_lookup.timed`` collects one event pair a launch, around
+    the kernel alone, and nothing once it is back to None."""
+    keys = sosd.generate("wiki", 300_000, seed=1)
+    q = sosd.make_queries(keys, 200_000, seed=2)
+    qt = encode_keys(q, card)
+    fn = plan.lower(rmi.build(keys, branching=4096, device=card),
+                    encode_keys(keys, card)).compile("cuda")
+    fn(qt)
+    rmi_kernel.launch_lookup.timed = timed = []
+    try:
+        outs = [fn(qt) for _ in range(3)]
+    finally:
+        rmi_kernel.launch_lookup.timed = None
+    fn(qt)
+    torch.cuda.synchronize()
+    assert len(timed) == 3
+    assert all(a.elapsed_time(b) > 0 for a, b in timed)
+    for out in outs:
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      np.searchsorted(keys, q))
+
+
 FAMILIES = [("pgm", {}), ("radix_spline", {}), ("rbs", {}), ("btree", {}),
             ("ibtree", {}), ("binary_search", {}), ("pgm", {"eps": 8}),
             ("btree", {"sample": 16})]
@@ -227,3 +250,97 @@ def test_plan_transforms_on_the_card(card):
         assert torch.equal(got.cpu(), want)
     assert torch.equal(on_card[0].cpu(),
                        torch.from_numpy(np.searchsorted(keys, q)))
+
+
+# ---------------------------------------------------------------------------
+# serving and tuning on the card
+# ---------------------------------------------------------------------------
+def _counts():
+    return (rmi_kernel.launch_lookup.launches, rmi_kernel.launch_bounds.launches,
+            bs_kernel.launch.launches)
+
+
+@pytest.mark.parametrize("index", ["rmi", "pgm"])
+def test_lookup_service_on_the_card(card, index):
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate("amzn", 200_000, seed=3)
+    q = sosd.make_queries(keys, 20_000, seed=4)
+    cfgs = {be: LookupServiceConfig(spec=default_spec(index, backend=be),
+                                    max_batch=2048, trace=True)
+            for be in ("cuda", "torch")}
+    gpu = LookupService(keys, cfgs["cuda"], device=card)
+    cpu = LookupService(keys, cfgs["torch"], device="cpu")
+    before = _counts()
+    results = {}
+    for svc in (gpu, cpu):
+        futs = [svc.submit(q[i:i + 500]) for i in range(0, 10_000, 500)]
+        futs += [svc.scan(q[i:i + 100], 16) for i in range(10_000, 12_000,
+                                                             100)]
+        svc.drain()
+        results[svc] = [f.result(30) for f in futs]
+    after = _counts()
+    for a, b in zip(results[gpu], results[cpu]):
+        if isinstance(a, tuple):
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+            assert a[1].dtype == np.uint64
+        else:
+            np.testing.assert_array_equal(a, b)
+    got = np.concatenate(results[gpu][:20])
+    np.testing.assert_array_equal(got, np.searchsorted(keys, q[:10_000]))
+    batches = gpu.metrics.snapshot()["batches"]
+    launched = [a - b for a, b in zip(after, before)]
+    want = [batches, 0, 0] if index == "rmi" else [0, 0, batches]
+    assert launched == want
+    assert gpu.health_snapshot()["health_n"] == 10_000
+    assert gpu.check_alerts() == [] and gpu.alerts.firing() == []
+
+
+def test_staging_buffer_reuse_under_in_flight_copies(card):
+    """Back-to-back batches of one bucket, each launched before the last
+    finished: the next pad into the bucket's pinned buffer must wait for
+    the copy out of it, so every batch answers for its own keys.  A spin
+    kernel queued before each batch keeps the stream busy, so every copy
+    is still pending when the next batch pads into the buffer (without
+    the dispatcher's wait on its copy event, the batches read each
+    other's keys)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.serve.lookup import ShardedDispatcher
+
+    keys = sosd.generate("wiki", 500_000, seed=1)
+    b = spec.build(spec.IndexSpec("rmi", {"branching": 4096}), keys,
+                   device=card)
+    fn = plan_mod.lower(b, encode_keys(keys, card)).compile("cuda")
+    d = ShardedDispatcher(device=card)
+    rng = np.random.default_rng(0)
+    batches = [sosd.make_queries(keys, int(rng.integers(2049, 4097)), seed=i)
+               for i in range(200)]
+    outs = []
+    for q in batches:
+        torch.cuda._sleep(1_000_000)     # ~0.5 ms of stream time
+        qt, p = d.pad_and_place(q)
+        assert p == 4096
+        outs.append(fn(qt))              # no wait between batches
+    torch.cuda.synchronize()
+    assert d.staging_allocs == 1 and d.staging_hits == 199
+    for q, out in zip(batches, outs):
+        np.testing.assert_array_equal(out[:q.size].cpu().numpy(),
+                                      np.searchsorted(keys, q))
+
+
+def test_tuner_measures_both_backends_on_the_card(card):
+    from repro_torch.core import plan as plan_mod
+
+    keys = sosd.generate("osm", 100_000, seed=2)
+    res = spec.Tuner(max_bytes=1 << 16, backends=("torch", "cuda"),
+                     max_configs=2).tune(keys, device=card)
+    assert set(res.backend_ns) == {"torch", "cuda"}
+    assert res.spec.backend == min(res.backend_ns, key=res.backend_ns.get)
+    assert res.build.size_bytes <= 1 << 16
+    assert res.build.device.type == "cuda"
+    q = sosd.make_queries(keys, 50_000, seed=3)
+    p = plan_mod.lower(res.build, encode_keys(keys, card))
+    got = p.compile(res.spec.backend)(encode_keys(q, card))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.searchsorted(keys, q))

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import pgm, rmi, spec
+from repro_torch.core import pgm, rmi, spec, tuning
 from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import ops
+from repro_torch.serve.lookup import (IndexRegistry, LookupService,
+                                      ShardedDispatcher)
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -34,7 +36,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout)
-    assert res["modules"] >= 30
+    assert res["modules"] >= 45
     assert res["bad"] == [], f"port pulled in {res['bad']}"
 
 
@@ -61,9 +63,15 @@ KEYS = np.arange(1, 1_001, dtype=np.uint64) * 7
     lambda: convert.from_reference(
         "rbs", {"table": np.arange(3), "kmin": np.uint64(7)}, KEYS,
         {"radix_bits": 1, "last_mile": "binary"}),
+    lambda: spec.Tuner(names=("rbs",)).tune(KEYS),
+    lambda: tuning.sweep(KEYS, names=("rbs",), max_configs=1),
+    lambda: LookupService(KEYS),
+    lambda: IndexRegistry(),
+    lambda: ShardedDispatcher(),
 ], ids=["rmi.build", "spec.build", "encode_keys", "prepare_f32_state",
         "rmi_from_reference", "pgm.build", "binary_search", "robin_hash",
-        "from_reference"])
+        "from_reference", "Tuner.tune", "tuning.sweep", "LookupService",
+        "IndexRegistry", "ShardedDispatcher"])
 def test_device_none_raises_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
