@@ -37,12 +37,30 @@ the cuda backend, 4 read clients and a scan client that each submit
 their whole stream before waiting on any answer, a hot swap onto the
 keys plus the delta on amzn, every answer against ``np.searchsorted`` on
 the generation that served it, one kernel launch a batch, no alert
-firing); on amzn the spec ``Tuner`` over every sweep family on every 10th
-key, both backends timed (``tune``); and last the serve driver
-``python -m repro_torch.launch.serve --mode lookup --doctor`` as a
-subprocess (``driver``).  One JSON line per phase; any failure exits
-nonzero.  The last line is the device summary ``{"ok": true, "device":
-{...}}``.  Full results go to ``--out``.
+firing), then the same traffic on the async executor (``serve_async``:
+the sync phase's generations published prebuilt, one CUDA graph a (kind,
+bucket) captured at start and again after the swap, every dispatch one
+replay of a graph that captured one launch of the path's kernel, no
+cache miss outside the swap's re-warm, the metrics endpoint scraped on
+an ephemeral port).  On wiki the mutable service (``mutable``: a YCSB-B
+and a YCSB-E trace, zipfian, through the async executor, a forced
+compaction and the threshold's own, every answer against
+`fast_mutable_oracle`).  Per cell the stage profile of the RMI and PGM
+plans on the cuda backend (``stage_profile``).  On amzn the spec
+``Tuner`` over every sweep family on every 10th key, both backends timed
+(``tune``); and last the serve driver ``python -m
+repro_torch.launch.serve --mode lookup --doctor`` as a subprocess, at its
+defaults (the async executor), with ``--metrics-jsonl`` and with
+``--executor sync`` (``driver``).  One JSON line per phase; any failure
+exits nonzero.  The last line is the device summary ``{"ok": true,
+"device": {...}}``.  Full results go to ``--out``.
+
+Kernel launches: each kernel wrapper counts the launches it makes, and a
+launch it makes while its stream is captured into a CUDA graph is counted
+once, at capture.  A graph's replays launch what it captured again, so
+the async executor's kernel launches are each graph's captured launches
+times its replays (`ExecutableCache.graph_stats`); the ``kernels`` line
+counts both.
 
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -100,6 +118,16 @@ SERVE_READS = 2_500            # read requests a client
 SERVE_SCANS = 250              # scan requests of the scan client
 SERVE_KEYS = 64                # keys a request
 SWAP_CELL = "amzn"
+ASYNC_SLOTS = 4                # the async executor's slot ring (serve_async)
+# the mutable service: the serve cell's PGM on wiki, a YCSB-B and a YCSB-E
+# trace (the reference's MIXES), zipfian, scans of the reference's default
+# length; a trace's ~1,000 inserts cross the threshold once after the
+# compaction forced at its first quarter
+MUTABLE_CELL = "wiki"
+MUTABLE_MIXES = ("ycsb_b", "ycsb_e")
+MUTABLE_OPS = 20_000
+MUTABLE_RANGE = 64
+MUTABLE_THRESHOLD = 500
 TUNE_CELL = "amzn"
 TUNE_STRIDE = 10               # the tuner sees every 10th key of the cell
 TUNE_MAX_BYTES = 1 << 20
@@ -363,6 +391,8 @@ def phase_main_path(dev, dataset, cell, args, log, totals):
             launches[k] += v
             totals[k] += v
     peak = torch.cuda.max_memory_allocated()
+    e2e["stage_profile"] = phase_stage_profile(dataset, build, p,
+                                               cell["queries"], log)
     emit({"phase": "main_path_launches", "dataset": dataset, **launches,
           "calls_per_run": calls, "per_run": per_run,
           "fused_kernel_launches_per_batch":
@@ -686,6 +716,9 @@ def phase_families(dev, dataset, cell, data, args, log, totals, errs):
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         emit(rec, log)
         out[name] = rec
+        if name == "pgm":
+            rec["stage_profile"] = phase_stage_profile(
+                dataset, build, p, cell["queries"], log)
         if name == "pgm" and dataset == TRANSFORMS_CELL:
             phase_transforms(p, cell, log, totals)
         if name == "binary_search":
@@ -838,49 +871,139 @@ def serve_check(key_sets, q, res, v0: int, v1: int, scan: bool) -> bool:
     return False
 
 
-def phase_serve(dev, dataset, cell, log, totals):
+def fast_mutable_oracle(base_keys, wl):
+    """`oracle_scan_replay`'s answers without copying the base array for
+    each insert (1.6 GB an insert at 200M keys): a read is
+    ``searchsorted(base) + searchsorted(admitted delta)``; an insert is
+    admitted once, unless the base or the delta holds its key (set
+    semantics); a range's window is the first ``aux`` keys of the sorted
+    union of the base's and the delta's next ``aux``, ``UINT64_MAX`` past
+    the end.  Returns ``(per-op results, {op index: window})``."""
+    import numpy as np
+    from repro_torch.workloads.workload import OP_INSERT, OP_RANGE
+
+    base = np.asarray(base_keys, dtype=np.uint64)
+    delta = np.empty(0, dtype=np.uint64)
+    top = np.iinfo(np.uint64).max
+    out = np.empty(wl.n_ops, dtype=np.int64)
+    windows = {}
+
+    def member(arr, k):
+        if not arr.size:
+            return np.zeros(k.shape, dtype=bool)
+        return arr[np.minimum(np.searchsorted(arr, k), arr.size - 1)] == k
+
+    def gather(arr, start, m):
+        idx = start[:, None] + np.arange(m)[None, :]
+        if not arr.size:
+            return np.full(idx.shape, top, dtype=np.uint64)
+        return np.where(idx < arr.size, arr[np.minimum(idx, arr.size - 1)],
+                        top)
+
+    i = 0
+    while i < wl.n_ops:
+        ins = wl.ops[i] == OP_INSERT
+        j = i
+        while j < wl.n_ops and (wl.ops[j] == OP_INSERT) == ins:
+            j += 1
+        k = wl.keys[i:j]
+        if ins:
+            fresh = ~(member(base, k) | member(delta, k))
+            first = np.zeros(k.size, dtype=bool)
+            idx = np.flatnonzero(fresh)
+            uniq, at = np.unique(k[idx], return_index=True)
+            first[idx[at]] = True
+            out[i:j] = first
+            delta = np.union1d(delta, uniq)
+        else:
+            pb, pd = np.searchsorted(base, k), np.searchsorted(delta, k)
+            out[i:j] = pb + pd
+            rng_ops = np.flatnonzero(wl.ops[i:j] == OP_RANGE)
+            for m in np.unique(wl.aux[i:j][rng_ops]):
+                sel = rng_ops[wl.aux[i:j][rng_ops] == m]
+                w = np.sort(np.concatenate(
+                    [gather(base, pb[sel], int(m)),
+                     gather(delta, pd[sel], int(m))], axis=1),
+                    axis=1)[:, :int(m)]
+                for r, row in zip(sel, w):
+                    windows[i + int(r)] = row
+        i = j
+    return out, windows
+
+
+def first_after_publish(spans, batches):
+    """The first batch after each publish: ``batches`` is ``[(t0, ms,
+    padded)]`` in launch order."""
+    first, firsts = [], set()
+    for pub in (s for s in spans if s.name == "publish"):
+        nxt = next((b for b in batches if b[0] >= pub.t0), None)
+        first.append({"version": pub.args["version"],
+                      "first_batch_ms": nxt[1] if nxt else None,
+                      "padded": nxt[2] if nxt else None})
+        if nxt is not None:
+            firsts.add(nxt)
+    return first, [b[1] for b in batches if b not in firsts]
+
+
+def phase_serve(dev, dataset, cell, log, totals, executor="sync",
+                prebuilt=None):
     """The lookup service on the cell's keys through its public entry
     points: the cell's index at the serving defaults on the cuda backend
-    (sync executor, health and trace on, default batch and deadline,
-    flusher thread), 4 read clients of 2,500 requests and one scan client
-    of 250, every request 64 keys of the cell's query stream.  A client
-    submits a burst of requests without waiting, then resolves them all
-    (open loop, as the reference's driver submits).  Each client's
-    stream is one burst; on SWAP_CELL a reader's is two: once every
-    reader has submitted half of its stream, ``swap_keys`` onto the keys
-    plus the delta, and a reader submits its last quarter only after
-    resolving its first three quarters and seeing the swap return.  Every
-    answer is held against ``np.searchsorted`` on the key set of a
-    generation current between its submit and its result, so a request
-    submitted after the swap returned must match the new set.  Launch counts cover the whole
-    serving window, swap included."""
+    (health and trace on, default batch and deadline, flusher thread), 4
+    read clients of 2,500 requests and one scan client of 250, every
+    request 64 keys of the cell's query stream.  A client submits a burst
+    of requests without waiting, then resolves them all (open loop, as
+    the reference's driver submits).  Each client's stream is one burst;
+    on SWAP_CELL a reader's is two: once every reader has submitted half
+    of its stream, the swap onto the keys plus the delta, and a reader
+    submits its last quarter only after resolving its first three
+    quarters and seeing the swap return.  Every answer is held against
+    ``np.searchsorted`` on the key set of a generation current between
+    its submit and its result.
+
+    ``executor="sync"`` (``serve``) builds its generations (``swap_keys``
+    at the swap) and returns them with its record.  ``"async"``
+    (``serve_async``: 4 slots, the default warm buckets, scans of length
+    16 warmed) publishes the sync phase's generations instead
+    (``prebuilt``), captures a CUDA graph a (kind, bucket) at start and
+    again after the swap, and must run every dispatch as one replay of a
+    graph that captured one launch of the path's kernel.  The kernel
+    wrappers count a launch at capture, so the async phase's kernel
+    launches are each graph's captured launches times its replays."""
     import gc
     import threading
+    import urllib.request
 
     import numpy as np
     import torch
     from repro_torch.kernels.common import encode_keys
+    from repro_torch.obs.export import MetricsServer
     from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
                                           default_spec)
 
     keys, queries = cell["keys"], cell["queries"]
     swap = dataset == SWAP_CELL
-    union = None
-    if swap:
+    aio = executor == "async"
+    if swap and "union" not in cell:
         delta = absent_delta(cell)
-        union = np.insert(keys, np.searchsorted(keys, delta), delta)
+        cell["union"] = np.insert(keys, np.searchsorted(keys, delta), delta)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    cfg = LookupServiceConfig(
+        spec=default_spec(SERVE_INDEX[dataset], backend="cuda"), trace=True,
+        executor=executor,
+        **(dict(slots=ASYNC_SLOTS, warm_scan_lengths=(SCAN_M,)) if aio
+           else {}))
     t0 = time.perf_counter()
-    svc = LookupService(keys, LookupServiceConfig(
-        spec=default_spec(SERVE_INDEX[dataset], backend="cuda"), trace=True),
-        device=dev)
+    svc = LookupService(keys, cfg, device=dev,
+                        prebuilt=prebuilt[0] if prebuilt else None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    gens = [svc.generation]
     v_first = svc.generation.version
     key_sets = {v_first: keys}
     if swap:                       # the one publisher: the next version
-        key_sets[v_first + 1] = union
+        key_sets[v_first + 1] = cell["union"]
     n_read = SERVE_CLIENTS * SERVE_READS * SERVE_KEYS
     reads = queries[:n_read].reshape(SERVE_CLIENTS, SERVE_READS, SERVE_KEYS)
     scans = queries[n_read:n_read + SERVE_SCANS * SERVE_KEYS].reshape(
@@ -910,7 +1033,7 @@ def phase_serve(dev, dataset, cell, log, totals):
                 if burst.start and burst:
                     held[c] = time.perf_counter()
                     if not swapped.wait(timeout=900):
-                        raise TimeoutError("swap_keys did not return")
+                        raise TimeoutError("the swap did not return")
                 pend = []
                 for i in burst:
                     if c is not None and i == len(rows) // 2:
@@ -931,58 +1054,113 @@ def phase_serve(dev, dataset, cell, log, totals):
     threads = [threading.Thread(target=client, args=(reads[c], False, c))
                for c in range(SERVE_CLIENTS)]
     threads.append(threading.Thread(target=client, args=(scans, True)))
-    timing = {}
+    timing, misses, scrape = {}, {}, {}
 
     def serve():
         svc.start()
+        misses["after_start"] = svc.exec_cache.counters()[1]
         t_start = time.perf_counter()
         for t in threads:
             t.start()
         if swap:
             for h in halfway:
                 h.wait(timeout=900)
+            misses["before_swap"] = svc.exec_cache.counters()[1]
             ts = time.perf_counter()
-            svc.swap_keys(union)
+            if aio:
+                gens.append(svc.registry.publish_prebuilt(prebuilt[1]))
+            else:
+                gens.append(svc.swap_keys(cell["union"]))
             timing["swap_s"] = time.perf_counter() - ts
             swapped.set()
             t_swapped = time.perf_counter()
+            svc.warm_wait()
+            timing["rewarm_s"] = time.perf_counter() - t_swapped
+            misses["after_rewarm"] = svc.exec_cache.counters()[1]
         for t in threads:
             t.join(timeout=1800)
         timing["wall_s"] = time.perf_counter() - t_start
         # the time every reader sat waiting for the swap to return
         timing["hold_s"] = max(0.0, t_swapped - max(held)) if swap else 0.0
+        misses["end"] = svc.exec_cache.counters()[1]
+        if aio:
+            # the exporter on an ephemeral port, scraped while serving
+            with MetricsServer(svc, port=0) as srv:
+                for path in ("/metrics", "/healthz"):
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{srv.port}{path}",
+                            timeout=30) as r:
+                        body = r.read().decode()
+                        scrape[path] = {"status": r.status,
+                                        "lines": len(body.splitlines())}
+                        if path == "/metrics":
+                            scrape[path]["has_lookups"] = \
+                                "repro_lookup_lookups " in body
         svc.stop()
 
     _, launched = driven(serve)
     check(not any(t.is_alive() for t in threads), f"{dataset} serve hung")
     snap = svc.metrics.snapshot()
     spans = svc.recorder.spans()
-    devices = sorted((s for s in spans if s.name == "device"),
-                     key=lambda s: s.t0)
-    first, first_ids = [], set()     # the first batch after each publish
-    for pub in (s for s in spans if s.name == "publish"):
-        nxt = next((d for d in devices if d.t0 >= pub.t0), None)
-        first.append({"version": pub.args["version"],
-                      "first_batch_ms": nxt.dur * 1e3 if nxt else None,
-                      "padded": nxt.args["padded"] if nxt else None})
-        if nxt is not None:
-            first_ids.add(id(nxt))
-    steady = np.array([d.dur for d in devices
-                       if id(d) not in first_ids]) * 1e3
+    if aio:
+        # a batch's time: its launch (host) to its answers (finalize end)
+        done = {s.args["rid_first"]: s for s in spans
+                if s.name == "finalize"}
+        batches = sorted(
+            (s.t0, (done[s.args["rid_first"]].t0
+                    + done[s.args["rid_first"]].dur - s.t0) * 1e3,
+             s.args["padded"]) for s in spans
+            if s.name == "launch" and s.args["rid_first"] in done)
+    else:
+        batches = sorted((s.t0, s.dur * 1e3, s.args["padded"])
+                         for s in spans if s.name == "device")
+    first, steady = first_after_publish(spans, batches)
+    steady = np.array(steady)
+
+    def pct(vals):
+        vals = np.asarray(vals, dtype=np.float64)
+        return ({"p50": float(np.percentile(vals, 50)),
+                 "p99": float(np.percentile(vals, 99))} if vals.size
+                else None)
+
+    # the host's share of a batch: the launch half and the completion
+    # half (async), or the pad+place span (sync), and the gap between
+    # consecutive launches
+    halves = {name: pct([s.dur * 1e3 for s in spans if s.name == name])
+              for name in (("launch", "finalize", "stage_wait") if aio
+                           else ("pad_place", "device", "stage_wait"))}
+    if aio:
+        # the CPU time the dispatch and completion threads spent in each;
+        # a thread's CPU clock may tick in steps as coarse as 10 ms, so
+        # only the mean over the phase's batches reads true
+        for name in ("launch", "finalize"):
+            cpu = [s.args["cpu_s"] * 1e3 for s in spans if s.name == name]
+            halves[f"{name}_cpu"] = {**pct(cpu),
+                                     "mean": float(np.mean(cpu))}
+    halves["launch_interval_ms"] = pct(np.diff([b[0] for b in batches])
+                                       * 1e3)
     gen = svc.generation
+    kernel = "rmi_lookup" if gen.plan.name == "rmi" else "bounded_search"
+    graphs = svc.exec_cache.graph_stats()
     q4 = encode_keys(queries[:svc.cfg.max_batch], dev)
     per_batch = {"plain_ms": cuda_ms(lambda: gen.fn(q4)),
                  "instrumented_ms": cuda_ms(
                      lambda: gen.instrumented_fn()(q4, q4.shape[0])),
                  "keys": int(q4.shape[0])}
+    if aio:
+        exe = svc.exec_cache._exes[((gen.version,), "read", 0,
+                                    q4.shape[0])]
+        exe.static_input.copy_(q4)
+        per_batch["instrumented_graph_ms"] = cuda_ms(
+            lambda: exe(exe.static_input, q4.shape[0]))
     h = svc.health_snapshot(window_s=timing["wall_s"] + 10.0)
     svc.check_alerts()
     firing = svc.alerts.firing()
-    kernel = "rmi_lookup" if gen.plan.name == "rmi" else "bounded_search"
     n_req = SERVE_CLIENTS * SERVE_READS + SERVE_SCANS
     rec = {
-        "phase": "serve", "dataset": dataset, "n": len(keys),
-        "spec": gen.spec.to_dict(), "executor": svc.cfg.executor,
+        "phase": "serve_async" if aio else "serve", "dataset": dataset,
+        "n": len(keys), "spec": gen.spec.to_dict(),
+        "executor": svc.cfg.executor,
         "max_batch": svc.cfg.max_batch, "deadline_ms": svc.cfg.deadline_ms,
         "clients": SERVE_CLIENTS, "reads_per_client": SERVE_READS,
         "scans": SERVE_SCANS, "keys_per_request": SERVE_KEYS,
@@ -1004,14 +1182,12 @@ def phase_serve(dev, dataset, cell, log, totals):
         "p50_batch_ms": snap["p50_batch_ms"],
         "p99_batch_ms": snap["p99_batch_ms"],
         "first_batch_after_publish": first,
-        "device_span_ms_steady": {
-            "p50": float(np.percentile(steady, 50)) if steady.size else None,
-            "p99": float(np.percentile(steady, 99)) if steady.size else None},
+        "batch_ms_steady": pct(steady),
+        "host_halves_ms": halves,
         "batches": snap["batches"],
         "mean_keys_per_batch": snap["lookups"] / max(snap["batches"], 1),
         "mean_occupancy": snap["mean_occupancy"],
         "launches": launched,
-        "launches_per_batch": launched[kernel] / max(snap["batches"], 1),
         "health": {k: h[k] for k in (
             "generation_version", "health_n", "disp_p50", "disp_p99",
             "disp_max", "build_disp_p99", "disp_p99_ratio",
@@ -1025,23 +1201,254 @@ def phase_serve(dev, dataset, cell, log, totals):
         "staging_allocs": svc.dispatcher.staging_allocs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+    if aio:
+        replayed = graphs["kernel_launches"].get(kernel, 0)
+        rec.update({
+            "slots": svc.cfg.slots,
+            "warm_buckets": list(svc._resolved_warm_buckets()),
+            "cache_hits": snap["cache_hits"],
+            "cache_misses": snap["cache_misses"],
+            "cache_hit_rate": snap["cache_hit_rate"],
+            "warm_compiles": snap["warm_compiles"],
+            "misses": misses,
+            # a miss between the publish and the end of its re-warm is
+            # the swap's transition; any other is a steady-state miss
+            "steady_state_misses": (
+                misses["before_swap"] + misses["end"]
+                - misses["after_rewarm"] if swap else misses["end"]),
+            "graphs": graphs,
+            "kernel_launches_per_dispatch":
+                (replayed - graphs["warm_replays"]) / max(snap["batches"], 1),
+            "graph_replays_per_dispatch":
+                graphs["graph_replays"] / max(snap["batches"], 1),
+            "mean_inflight_slots": snap["mean_inflight_slots"],
+            "max_inflight_slots": snap["max_inflight_slots"],
+            "scrape": scrape,
+        })
+    else:
+        rec["launches_per_batch"] = launched[kernel] / max(snap["batches"], 1)
     emit(rec, log)
-    check(not tally["errors"], f"{dataset} serve clients failed: "
+    name = rec["phase"]
+    check(not tally["errors"], f"{dataset} {name} clients failed: "
           f"{tally['errors'][:3]}")
     check(tally["checked"] == n_req and tally["bad"] == 0,
-          f"{dataset} serve: {tally['bad']} wrong of {tally['checked']}")
+          f"{dataset} {name}: {tally['bad']} wrong of {tally['checked']}")
     check(not swap or tally["after_swap"] > 0,
-          f"{dataset} serve: no request met the swapped generation")
-    check(launched == {k: snap["batches"] if k == kernel else 0
-                       for k in launched},
-          f"{dataset} serve launched {launched} over {snap['batches']} "
-          "batches")
-    check(not firing, f"{dataset} serve: alerts firing {firing}")
-    for k, v in launched.items():
-        totals[k] += v
+          f"{dataset} {name}: no request met the swapped generation")
+    check(not firing, f"{dataset} {name}: alerts firing {firing}")
+    if aio:
+        # every build: one eager run and one capture through the wrapper
+        check(launched == {k: 2 * graphs["graphs_built"] if k == kernel
+                           else 0 for k in launched},
+              f"{dataset} {name} wrappers launched {launched} for "
+              f"{graphs['graphs_built']} graphs")
+        check(graphs["kernel_launches"] == {
+            k: graphs["graph_replays"] + graphs["warm_replays"]
+            if k == kernel else 0 for k in graphs["kernel_launches"]},
+              f"{dataset} {name}: graphs launched {graphs}")
+        check(graphs["graph_replays"] == snap["batches"],
+              f"{dataset} {name}: {graphs['graph_replays']} replays for "
+              f"{snap['batches']} dispatches")
+        check(rec["steady_state_misses"] == 0,
+              f"{dataset} {name}: steady-state cache misses {misses}")
+        check(scrape["/healthz"]["status"] == 200
+              and scrape["/metrics"]["has_lookups"],
+              f"{dataset} {name}: metrics scrape {scrape}")
+        for k, v in launched.items():
+            totals[k] += v + graphs["kernel_launches"].get(k, 0)
+    else:
+        check(launched == {k: snap["batches"] if k == kernel else 0
+                           for k in launched},
+              f"{dataset} {name} launched {launched} over "
+              f"{snap['batches']} batches")
+        for k, v in launched.items():
+            totals[k] += v
     del svc, gen
     gc.collect()
     torch.cuda.empty_cache()
+    return rec, gens
+
+
+def phase_mutable(dev, cell, args, log, totals):
+    """The mutable service on MUTABLE_CELL's keys (PGM eps=64 on the cuda
+    backend, the async executor, scans of length MUTABLE_RANGE warmed),
+    one service for both traces: a `make_workload` trace of each of
+    MUTABLE_MIXES (zipfian) over the cell's keys, replayed through
+    `replay_on_service` (runs of one op kind, up to 64 ops a request,
+    each part submitted open loop) in two parts with a forced compaction
+    between them, after the first quarter; the threshold starts its own.
+    Every answer, admitted flag and scan window is held against
+    `fast_mutable_oracle` over the keys the service held when the trace
+    began (the second trace's include what the first admitted)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.serve.lookup import (MutableLookupService,
+                                          MutableLookupServiceConfig,
+                                          default_spec)
+    from repro_torch.workloads import (OP_INSERT, Workload, make_workload,
+                                       replay_on_service)
+
+    keys = cell["keys"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = MutableLookupService(keys, MutableLookupServiceConfig(
+        spec=default_spec("pgm", backend="cuda"), executor="async",
+        warm_scan_lengths=(MUTABLE_RANGE,),
+        compact_threshold=MUTABLE_THRESHOLD, trace=True), device=dev)
+    setup_s = time.perf_counter() - t0
+    peak = [0]
+    gauge = svc.metrics.set_delta_gauge
+
+    def watch(*, delta_keys, threshold):
+        peak[0] = max(peak[0], delta_keys)
+        gauge(delta_keys=delta_keys, threshold=threshold)
+
+    svc.metrics.set_delta_gauge = watch
+    cut = MUTABLE_OPS // 4
+    out = {}
+    svc.start()
+    for i_mix, mix in enumerate(MUTABLE_MIXES):
+        view = svc.mindex.view()
+        base = view.base_np
+        if view.delta.count:
+            d = view.delta.keys_np
+            base = np.insert(base, np.searchsorted(base, d), d)
+        t0 = time.perf_counter()
+        # a seed a trace: the same seed would insert the same keys again
+        wl = make_workload(keys, MUTABLE_OPS, mix=mix, dist="zipfian",
+                           seed=args.seed + i_mix, range_len=MUTABLE_RANGE)
+        t_wl = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, want_win = fast_mutable_oracle(base, wl)
+        t_oracle = time.perf_counter() - t0
+        before = svc.metrics.snapshot()
+        graphs0 = svc.exec_cache.graph_stats()
+        n_spans = len([s for s in svc.recorder.spans()
+                       if s.name == "compaction"])
+        peak[0] = 0
+        wall = {}
+
+        def run():
+            got, got_win = [], {}
+            t1 = time.perf_counter()
+            for lo, hi in ((0, cut), (cut, MUTABLE_OPS)):
+                part = Workload(ops=wl.ops[lo:hi], keys=wl.keys[lo:hi],
+                                aux=wl.aux[lo:hi])
+                res, win = replay_on_service(part, svc, chunk=64,
+                                             scan_ranges=True, timeout=900)
+                got.append(res)
+                got_win.update({lo + i: w for i, w in win.items()})
+                if lo == 0:
+                    wall["forced"] = svc.force_compact()
+            wall["s"] = time.perf_counter() - t1
+            # the threshold's compaction may outlast the trace's answers
+            t = svc._compact_thread
+            if t is not None:
+                t.join()
+            return np.concatenate(got), got_win
+
+        (got, got_win), launched = driven(run)
+        exact = bool(np.array_equal(got, want)
+                     and set(got_win) == set(want_win)
+                     and all(np.array_equal(got_win[i], want_win[i])
+                             for i in want_win))
+        snap = svc.metrics.snapshot()
+        g1 = svc.exec_cache.graph_stats()
+        graphs = {k: g1[k] - graphs0[k] for k in ("graphs_built",
+                                                  "graph_replays",
+                                                  "warm_replays")}
+        graphs["kernel_launches"] = {
+            k: v - graphs0["kernel_launches"].get(k, 0)
+            for k, v in g1["kernel_launches"].items()}
+        comp = [s.dur for s in svc.recorder.spans()
+                if s.name == "compaction"][n_spans:]
+        delta = {k: snap[k] - before[k] for k in (
+            "compactions", "compaction_failures", "batches",
+            "insert_batches", "cache_hits", "cache_misses")}
+        rec = {"phase": "mutable", "dataset": MUTABLE_CELL, "n": len(base),
+               "mix": mix, "dist": "zipfian", "ops": MUTABLE_OPS,
+               "op_counts": wl.counts(), "range_len": MUTABLE_RANGE,
+               "spec": svc.generation.spec.to_dict(),
+               "executor": svc.cfg.executor,
+               "compact_threshold": MUTABLE_THRESHOLD,
+               "forced_compaction_after": cut,
+               "service_setup_s": setup_s, "workload_s": t_wl,
+               "oracle_s": t_oracle, "wall_s": wall["s"],
+               "ops_per_s": MUTABLE_OPS / wall["s"], "exact": exact,
+               "inserts_admitted": int(got[wl.ops == OP_INSERT].sum()),
+               "peak_delta_keys": peak[0], **delta, "compaction_s": comp,
+               "generation_version": svc.generation.version,
+               "p50_request_ms_lifetime": snap["p50_request_ms"],
+               "p99_request_ms_lifetime": snap["p99_request_ms"],
+               "graphs": graphs, "launches": launched,
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        emit(rec, log)
+        check(exact, f"mutable {mix}: an answer differs from the oracle")
+        check(wall["forced"] is not None and delta["compactions"] >= 2
+              and delta["compaction_failures"] == 0
+              and svc.last_compaction_error is None,
+              f"mutable {mix}: forced {wall['forced']}, compactions "
+              f"{delta['compactions']}, failures "
+              f"{delta['compaction_failures']}")
+        check(graphs["graph_replays"] == delta["batches"],
+              f"mutable {mix}: {graphs['graph_replays']} replays for "
+              f"{delta['batches']} dispatches")
+        check(graphs["kernel_launches"] == {
+            k: graphs["graph_replays"] + graphs["warm_replays"]
+            if k == "bounded_search" else 0
+            for k in graphs["kernel_launches"]},
+              f"mutable {mix}: graphs launched {graphs}")
+        for k, v in launched.items():
+            totals[k] += v + graphs["kernel_launches"].get(k, 0)
+        out[mix] = rec
+        del wl, want, want_win, got, got_win
+    svc.stop()
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stage_profile(dataset, build, p, queries, log):
+    """`obs.profiler.profile_generation` over one of the cell's plans on
+    the cuda backend and 1M of its queries: the predict stage (the plan's
+    torch predict alone), the rest of the plan's call as the search stage,
+    the `analysis.cost_ns` proxy split and their ratio; and the same split
+    from replays of the two calls captured as CUDA graphs."""
+    from repro_torch.kernels.common import encode_keys
+    from repro_torch.obs.profiler import profile_generation
+    from repro_torch.serve.lookup.executor import GraphExecutable
+    from repro_torch.serve.lookup.registry import Generation
+
+    gen = Generation(version=-1, build=build, data=p.data, plan=p,
+                     fn=p.compile("cuda"), n_keys=p.n, backend="cuda")
+    t0 = time.perf_counter()
+    row = profile_generation(gen, queries[:BATCH], repeats=5)
+    # the same two calls captured as CUDA graphs: their replays' device
+    # time leaves out the host's launch gaps, which the profiler's
+    # events around an eager call include
+    qt = encode_keys(queries[:BATCH], p.data.device)
+    graph_ns = {}
+    for stage, fn in (("predict", lambda q: p.bounds.predict(p.bounds.state,
+                                                            q)),
+                      ("total", gen.fn)):
+        g = GraphExecutable(fn, BATCH, (), False, p.data.device)
+        g.static_input.copy_(qt)
+        graph_ns[stage] = cuda_ms(g.graph.replay) / BATCH * 1e6
+        del g
+    rec = {"phase": "stage_profile", "dataset": dataset, **row,
+           "graph_predict_ns": graph_ns["predict"],
+           "graph_total_ns": graph_ns["total"],
+           "graph_search_ns": max(0.0, graph_ns["total"]
+                                  - graph_ns["predict"]),
+           "hyper": build.hyper, "max_err": p.bounds.max_err,
+           "fused": p.name == "rmi", "seconds": time.perf_counter() - t0}
+    emit(rec, log)
+    check(rec["stage_total_ns"] > 0 and rec["cost_model_ratio"] > 0,
+          f"stage profile {dataset}/{p.name}: {rec}")
     return rec
 
 
@@ -1100,24 +1507,49 @@ def phase_tune(dev, cell, args, log, totals):
 
 
 def phase_driver(log):
-    """The serve driver as a user runs it, at its defaults, with
-    ``--doctor`` and an RMI spec on the cuda backend: it must exit 0."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
-           "lookup", "--doctor", "--spec", json.dumps(DRIVER_SPEC)]
+    """The serve driver as a user runs it, with ``--doctor`` and an RMI
+    spec on the cuda backend, three times: at its defaults (the async
+    executor), with ``--metrics-jsonl`` (the file it writes is parsed),
+    and with ``--executor sync``.  Each must exit 0."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")]
         + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                         text=True, timeout=600)
-    rec = {"phase": "driver", "command": " ".join(cmd[1:]),
-           "rc": out.returncode, "seconds": time.perf_counter() - t0,
-           "summary": out.stdout.splitlines(),
-           "stderr_tail": out.stderr.splitlines()[-20:]}
-    emit(rec, log)
-    check(out.returncode == 0, f"serve driver exited {out.returncode}")
-    return rec
+    jsonl = os.path.join(ROOT, "chiprun_out", "driver_metrics.jsonl")
+    os.makedirs(os.path.dirname(jsonl), exist_ok=True)
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    runs = {"default": [], "metrics_jsonl": ["--metrics-jsonl", jsonl],
+            "sync": ["--executor", "sync"]}
+    out = {}
+    for label, extra in runs.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+               "lookup", "--doctor", "--spec", json.dumps(DRIVER_SPEC),
+               *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        rec = {"phase": "driver", "run": label, "command": " ".join(cmd[1:]),
+               "rc": res.returncode, "seconds": time.perf_counter() - t0,
+               "summary": res.stdout.splitlines(),
+               "stderr_tail": res.stderr.splitlines()[-20:]}
+        if label == "metrics_jsonl":
+            with open(jsonl) as f:
+                docs = [json.loads(line) for line in f]
+            rec["jsonl_lines"] = len(docs)
+            rec["jsonl_last_lookups"] = (docs[-1]["lifetime"]["lookups"]
+                                         if docs else None)
+        emit(rec, log)
+        check(res.returncode == 0, f"serve driver ({label}) exited "
+              f"{res.returncode}")
+        executor = "sync" if label == "sync" else "async"
+        check(f"executor={executor}" in res.stdout,
+              f"serve driver ({label}) did not run the {executor} executor")
+        if label == "metrics_jsonl":
+            check(rec["jsonl_lines"] >= 1 and rec["jsonl_last_lookups"] > 0,
+                  f"serve driver wrote {rec['jsonl_lines']} JSONL lines")
+        out[label] = rec
+    return out
 
 
 def main(argv=None) -> int:
@@ -1167,10 +1599,16 @@ def main(argv=None) -> int:
         del data
         gc.collect()
         torch.cuda.empty_cache()
-        serve = phase_serve(dev, ds, cell, log, totals)
+        serve, gens = phase_serve(dev, ds, cell, log, totals)
+        serve_async, _ = phase_serve(dev, ds, cell, log, totals,
+                                     executor="async", prebuilt=gens)
         cells[ds] = {"end_to_end": e2e, "profile": profile,
                      "kernels": kernels, "families": families,
-                     "serve": serve}
+                     "serve": serve, "serve_async": serve_async}
+        del gens
+        if ds == MUTABLE_CELL:
+            cells[ds]["mutable"] = phase_mutable(dev, cell, args, log,
+                                                 totals)
         if ds == TUNE_CELL:
             cells[ds]["tune"] = phase_tune(dev, cell, args, log, totals)
         del cell

@@ -47,7 +47,8 @@ from repro_torch.obs.health import (HEALTH_DISP_BUCKETS,  # noqa: F401
                                     HEALTH_STATS_SIZE,
                                     HEALTH_TRAFFIC_BUCKETS)
 
-__all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_stats_expr",
+__all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_edges",
+           "health_stats_expr",
            "lower", "pack_health_stats", "register_fused",
            "FUSED_LOWERERS"]
 
@@ -109,22 +110,46 @@ def _cum_bucket_hist(vals, edges, valid):
     return cext[:-1] - cext[1:]
 
 
+def health_edges(n: int, max_err: int, device) -> Dict[str, torch.Tensor]:
+    """The constant bucket edges of `health_stats_expr` for a plan of
+    ``n`` keys and bound ``max_err``, as tensors on ``device``.  Made once
+    an expression, outside any CUDA-graph capture: a host-to-device copy
+    of a host list cannot be captured."""
+    K = HEALTH_TRAFFIC_BUCKETS
+    dt = torch.int32 if int(n) < 2 ** 31 else torch.int64
+    return {
+        "steps": torch.tensor(
+            [1 << j for j in range(max(1, int(max_err).bit_length()))],
+            dtype=dt, device=device),
+        "disp": torch.tensor([1 << j for j in range(HEALTH_DISP_BUCKETS - 1)],
+                             dtype=dt, device=device),
+        # rank r is in traffic bucket r*K//n  <=>  r >= ceil(j*n/K) for
+        # exactly (bucket index + 1) edges j
+        "traffic": torch.tensor(
+            [(j * int(n) + K - 1) // K for j in range(1, K)], dtype=dt,
+            device=device),
+    }
+
+
 def health_stats_expr(pos, lo, hi, n: int, max_err: int, n_valid,
-                      point_only: bool = False):
+                      point_only: bool = False, edges=None):
     """Fixed-size reductions for the health monitor.
 
     ``pos`` is the [B] int64 result lanes, ``(lo, hi)`` the bounds-stage
-    window (ignored when ``point_only``), ``n_valid`` masks out pad lanes.
-    Returned: a log2 prediction-displacement histogram (bucket 0 = exact
-    hit, bucket j = ``[2^(j-1), 2^j)``, the last bucket overflows), a
-    rank-quantized traffic histogram (bucket ``r*K//n``, counted against
-    the ceil rank edges), and sums of displacement, bound width and
-    last-mile steps.  Displacement, width and rank are int32 when ``n``
-    permits, as in the reference.
+    window (ignored when ``point_only``), ``n_valid`` (an int or a 0-d
+    device tensor) masks out pad lanes.  Returned: a log2
+    prediction-displacement histogram (bucket 0 = exact hit, bucket j =
+    ``[2^(j-1), 2^j)``, the last bucket overflows), a rank-quantized
+    traffic histogram (bucket ``r*K//n``, counted against the ceil rank
+    edges), and sums of displacement, bound width and last-mile steps.
+    Displacement, width and rank are int32 when ``n`` permits, as in the
+    reference.  ``edges`` are `health_edges` for the same ``n`` and
+    ``max_err`` on ``pos``'s device (made here when None).
     """
     B = pos.shape[0]
-    K = HEALTH_TRAFFIC_BUCKETS
     dev = pos.device
+    if edges is None:
+        edges = health_edges(n, max_err, dev)
     lane = torch.arange(B, dtype=torch.int32, device=dev) < n_valid
     dt = torch.int32 if int(n) < 2 ** 31 else torch.int64
     if point_only:
@@ -139,21 +164,12 @@ def health_stats_expr(pos, lo, hi, n: int, max_err: int, n_valid,
         disp = torch.where(valid, (pos.to(dt) - mid).abs(), 0)
         width = torch.where(valid, hi_n - lo_n + 1, 0)
         # binary-search trip count over the bound: ceil(log2(width))
-        s_edges = torch.tensor(
-            [1 << j for j in range(max(1, int(max_err).bit_length()))],
-            dtype=dt, device=dev)
         steps = torch.where(
-            valid, (width[:, None] > s_edges[None, :]).sum(
+            valid, (width[:, None] > edges["steps"][None, :]).sum(
                 dim=1, dtype=torch.int32), 0).to(dt)
-    d_edges = torch.tensor([1 << j for j in range(HEALTH_DISP_BUCKETS - 1)],
-                           dtype=dt, device=dev)
-    disp_hist = _cum_bucket_hist(disp, d_edges, valid)
+    disp_hist = _cum_bucket_hist(disp, edges["disp"], valid)
     rank = torch.clamp(pos, 0, n - 1).to(dt)
-    # rank r is in traffic bucket r*K//n  <=>  r >= ceil(j*n/K) for
-    # exactly (bucket index + 1) edges j
-    t_edges = torch.tensor([(j * int(n) + K - 1) // K for j in range(1, K)],
-                           dtype=dt, device=dev)
-    traffic_hist = _cum_bucket_hist(rank, t_edges, valid)
+    traffic_hist = _cum_bucket_hist(rank, edges["traffic"], valid)
     return {
         "n": valid.sum(dtype=torch.int32),
         "disp_hist": disp_hist,
@@ -322,13 +338,15 @@ class LookupPlan:
         stats from the plan's own bounds (never a fused kernel's f32
         state), so they do not depend on the backend."""
         n, max_err = self.n, self.bounds.max_err
+        edges = health_edges(n, max_err, self.data.device)
         if self.point_only:
             run = self.lb_expr(backend)
 
             def run_point_instr(q, n_valid):
                 pos = run(q)
                 stats = health_stats_expr(pos, None, None, n, max_err,
-                                          n_valid, point_only=True)
+                                          n_valid, point_only=True,
+                                          edges=edges)
                 return pos, pack_health_stats(stats)
 
             return run_point_instr
@@ -337,7 +355,8 @@ class LookupPlan:
 
         def run_instr(q, n_valid):
             pos, lo, hi = base_fn(q)
-            stats = health_stats_expr(pos, lo, hi, n, max_err, n_valid)
+            stats = health_stats_expr(pos, lo, hi, n, max_err, n_valid,
+                                      edges=edges)
             return pos, pack_health_stats(stats)
 
         return run_instr
@@ -350,20 +369,26 @@ class LookupPlan:
                 f"{self.name!r} is point-only: no merged lookups")
         base_fn = self._instr_base_expr(backend)
         n, max_err = self.n, self.bounds.max_err
+        edges = health_edges(n, max_err, self.data.device)
 
         def merged_instr(q, n_valid, delta_padded):
             lb_base, lo, hi = base_fn(q)
             lb_delta = torch.searchsorted(delta_padded, q, side="left")
-            stats = health_stats_expr(lb_base, lo, hi, n, max_err, n_valid)
+            stats = health_stats_expr(lb_base, lo, hi, n, max_err, n_valid,
+                                      edges=edges)
             return lb_base + lb_delta, pack_health_stats(stats)
 
         return merged_instr
 
     # -- cached entry points ------------------------------------------------
     def _compiled(self, key, make_expr) -> Callable:
+        """The cached callable of ``key``, tagged with ``lookup_plan`` (this
+        plan): the serving executor captures a tagged callable as a CUDA
+        graph on the card and runs any other callable as it is."""
         fn = self._cache.get(key)
         if fn is None:
             fn = self._cache[key] = make_expr()
+            fn.lookup_plan = self
         return fn
 
     def compile(self, backend: str = "torch",

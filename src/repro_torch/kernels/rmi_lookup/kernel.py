@@ -9,7 +9,10 @@ kernel and its plain version is `ops`'s job.
 ``launch_lookup.timed`` is None, or a list that each launch appends a
 ``(start, end)`` pair of timing CUDA events to, recorded on the launch
 stream just before and just after the kernel: the kernel's own device
-time, without the host work of the call around it.
+time, without the host work of the call around it.  A launch made while
+its stream is being captured into a CUDA graph records no pair (a timing
+event cannot be captured); the count, like every count here, goes up
+once at capture and not at the graph's replays.
 """
 from __future__ import annotations
 
@@ -95,6 +98,8 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
     lib, timed = _lib(), launch_lookup.timed
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
+        if torch.cuda.is_current_stream_capturing():
+            timed = None
         if timed is not None:
             pair = (torch.cuda.Event(enable_timing=True),
                     torch.cuda.Event(enable_timing=True))

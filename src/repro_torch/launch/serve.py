@@ -10,22 +10,30 @@ CPU, where the kernels' plain versions run).  ``--spec`` takes one
 
     --spec '{"index": "rmi", "hyper": {"branching": 4096}, "backend": "cuda"}'
 
-``--trace-out`` records the run and writes a Chrome-trace JSON,
-``--slo-p99-ms`` arms the windowed error-budget tracking, and index
-health is instrumented by default (``--no-health`` turns it off): the
-summary prints the health line (displacement p99 against the error
-bound, drift) and the alert verdict.  ``--doctor`` exits nonzero when an
-alert is firing at the end of the run or an answer is wrong.
+``--executor`` picks the dispatch engine: ``async`` (the default, as in
+the reference: CUDA graphs of the plan's callables in an executable
+cache, a slot ring of in-flight batches) or ``sync`` (the serial loop).
 
-The lookup mode of the reference's `repro.launch.serve`, with its
-synchronous executor: ``--executor`` accepts only ``sync`` until the
-async executor is ported (ROADMAP item 7; the reference defaults to
-``async``).  Token mode waits for the LM scaffolding (item 13), and the
-metrics endpoint and JSONL logger for the exporters (item 9).
+Ops surface: ``--metrics-port`` starts the stdlib HTTP exporter (GET
+/metrics for Prometheus text, /metrics.json, /trace.json, /health.json,
+/alerts.json, /healthz), ``--metrics-jsonl`` appends a metrics snapshot a
+second to a file, ``--trace-out`` records the run and writes a
+Chrome-trace JSON, ``--slo-p99-ms`` arms the windowed error-budget
+tracking, and index health is instrumented by default (``--no-health``
+turns it off): the summary prints the health line (displacement p99
+against the error bound, drift) and the alert verdict.  ``--doctor``
+exits nonzero when an alert is firing at the end of the run or an answer
+is wrong.
+
+The lookup mode of the reference's `repro.launch.serve`.  Token mode
+waits for the LM scaffolding (ROADMAP item 13), ``--shards`` and
+``--replicas`` for range-routed serving (item 10) and the autotune flags
+for autotune (item 11).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -35,6 +43,7 @@ def run_lookup(args) -> None:
     from repro_torch.core import base
     from repro_torch.core.spec import IndexSpec
     from repro_torch.data import sosd
+    from repro_torch.obs.export import JsonlMetricsLogger, MetricsServer
     from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
                                           default_spec)
 
@@ -53,13 +62,25 @@ def run_lookup(args) -> None:
           f"built in {time.time() - t0:.2f}s)")
     q = sosd.make_queries(keys, args.requests * args.keys_per_request, seed=2)
 
-    t0 = time.time()
-    with svc:
-        futs = [svc.submit(q[i * args.keys_per_request:
-                             (i + 1) * args.keys_per_request])
-                for i in range(args.requests)]
-        outs = [f.result(timeout=120.0) for f in futs]
-    dt = time.time() - t0
+    with contextlib.ExitStack() as stack:
+        if args.metrics_port is not None:
+            server = stack.enter_context(
+                MetricsServer(svc, port=args.metrics_port,
+                              window_s=args.window_s))
+            print(f"metrics: http://127.0.0.1:{server.port}/metrics "
+                  f"(+ /metrics.json, /trace.json, /health.json, "
+                  f"/alerts.json, /healthz)")
+        if args.metrics_jsonl:
+            stack.enter_context(JsonlMetricsLogger(
+                svc, args.metrics_jsonl, interval_s=1.0,
+                window_s=args.window_s))
+        t0 = time.time()
+        with svc:
+            futs = [svc.submit(q[i * args.keys_per_request:
+                                 (i + 1) * args.keys_per_request])
+                    for i in range(args.requests)]
+            outs = [f.result(timeout=120.0) for f in futs]
+        dt = time.time() - t0
 
     got = np.concatenate(outs)
     exact = bool(np.array_equal(got, base.lower_bound_oracle(keys, q)))
@@ -73,7 +94,8 @@ def run_lookup(args) -> None:
           f"batch p99 {snap['p99_batch_ms']:.2f}ms, "
           f"queue p99 {snap['p99_queue_ms']:.2f}ms, "
           f"request p50 {snap['p50_request_ms']:.2f}ms, "
-          f"request p99 {snap['p99_request_ms']:.2f}ms")
+          f"request p99 {snap['p99_request_ms']:.2f}ms, "
+          f"cache hit rate {snap['cache_hit_rate']:.2f}")
     w = svc.metrics.windowed(args.window_s)
     line = (f"windowed({w['window_s']:.0f}s): p50 {w['p50_ms']:.2f}ms, "
             f"p99 {w['p99_ms']:.2f}ms, "
@@ -87,6 +109,8 @@ def run_lookup(args) -> None:
         svc.recorder.save(args.trace_out)
         print(f"wrote Chrome trace ({len(svc.recorder)} spans, "
               f"{svc.recorder.n_dropped} dropped) to {args.trace_out}")
+    if args.metrics_jsonl:
+        print(f"wrote metrics JSONL to {args.metrics_jsonl}")
     # health verdict: evaluate the alert rules over the whole run
     events = svc.check_alerts(window_s=max(args.window_s, dt + 1.0))
     firing = svc.alerts.firing()
@@ -126,12 +150,20 @@ def main(argv=None) -> None:
     ap.add_argument("--n-keys", type=int, default=200_000)
     ap.add_argument("--keys-per-request", type=int, default=64)
     ap.add_argument("--deadline-ms", type=float, default=2.0)
-    ap.add_argument("--executor", choices=("sync",), default="sync",
-                    help="lookup dispatch engine: the serial sync loop "
-                         "(the async executor is ROADMAP item 7)")
+    ap.add_argument("--executor", choices=("sync", "async"), default="async",
+                    help="lookup dispatch engine: the continuous-batching "
+                         "async executor (default) or the serial sync loop")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA "
                          "card; 'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="start the HTTP metrics endpoint on this port "
+                         "(0 = ephemeral): /metrics Prometheus text, "
+                         "/metrics.json, /trace.json, /health.json, "
+                         "/alerts.json, /healthz")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append one metrics snapshot per second to this "
+                         "JSONL file")
     ap.add_argument("--trace-out", default=None,
                     help="record request/lifecycle spans and write a "
                          "Chrome-trace JSON here")

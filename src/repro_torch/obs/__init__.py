@@ -15,6 +15,12 @@ stack imports *us*):
              stats of `core.plan.instrumented_expr`.
   alerts     declarative `AlertRule` thresholds over a flat snapshot,
              evaluated by an `AlertEngine` with ok/firing/resolved state.
+  profiler   per-plan-stage timing: predict vs bounded search per
+             (index, backend), CUDA events on the card, against the
+             `analysis.cost_ns` proxy.
+  export     Prometheus-text + JSON exporters, a stdlib HTTP metrics
+             endpoint (`MetricsServer`) and periodic JSONL logging
+             (`JsonlMetricsLogger`).
 """
 from repro_torch.obs.alerts import (AlertEngine, AlertRule, JsonlSink,
                                     LogSink, default_rules)

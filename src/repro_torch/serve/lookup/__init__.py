@@ -5,16 +5,22 @@ Requests carrying small uint64 key arrays are admitted without blocking,
 coalesced by a deadline/size micro-batcher, dispatched as one
 plan-compiled lookup (`repro_torch.core.plan`: index bounds + last-mile
 stage, ``"torch"`` or ``"cuda"`` backend) per batch, and completed
-through per-request futures.  Index generations hot-swap atomically: a
-rebuild on a fresh key set becomes visible between batches, never inside
-one.  The synchronous executor of the reference's service; its async
-executor, mutable service and range-routed topology are later ports.
+through per-request futures, by the synchronous loop or by the async
+executor (CUDA graphs in an executable cache, a slot ring).  Index
+generations hot-swap atomically: a rebuild on a fresh key set becomes
+visible between batches, never inside one.  `MutableLookupService` adds
+inserts and compaction.  The reference's range-routed topology is a later
+port.
 """
 from repro_torch.serve.lookup.admission import (ClientBacklogFull,
                                                 LookupFuture, MicroBatcher)
 from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM,
                                                ShardedDispatcher, make_plan)
+from repro_torch.serve.lookup.executor import (AsyncContext, AsyncExecutor,
+                                               ExecutableCache)
 from repro_torch.serve.lookup.metrics import ServiceMetrics
+from repro_torch.serve.lookup.mutable_service import (
+    MutableLookupService, MutableLookupServiceConfig)
 from repro_torch.serve.lookup.registry import Generation, IndexRegistry
 from repro_torch.serve.lookup.service import (DEFAULT_HYPER, LookupService,
                                               LookupServiceConfig,
@@ -24,6 +30,9 @@ __all__ = [
     "DEFAULT_HYPER",
     "PAD_QUANTUM",
     "default_spec",
+    "AsyncContext",
+    "AsyncExecutor",
+    "ExecutableCache",
     "ClientBacklogFull",
     "LookupFuture",
     "MicroBatcher",
@@ -34,4 +43,6 @@ __all__ = [
     "IndexRegistry",
     "LookupService",
     "LookupServiceConfig",
+    "MutableLookupService",
+    "MutableLookupServiceConfig",
 ]

@@ -29,7 +29,8 @@ import numpy as np
 from repro_torch.core import base
 from repro_torch.core import spec as spec_mod
 from repro_torch.core.plan import LookupPlan
-from repro_torch.kernels.common import encode_keys, resolve_device
+from repro_torch.kernels.common import (decode_keys, encode_keys,
+                                        resolve_device)
 from repro_torch.obs.trace import maybe_span
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.dispatch import make_plan
@@ -51,6 +52,8 @@ class Generation:
     #: The validated `IndexSpec` this generation was built from, with
     #: ``backend``/``last_mile`` set to what it actually serves with.
     spec: Optional[spec_mod.IndexSpec] = None
+    #: One of its keys (uint64), for the executor's warm-up batches.
+    sample_key: int = 1
 
     def scan_fn(self, m: int) -> Callable:
         """Plan-compiled scan (positions + m-record window), cached on
@@ -69,6 +72,11 @@ class Generation:
         plus the device-reduced stats the health monitor folds in
         (``donate`` as in `fn_for`)."""
         return self.plan.compile_instrumented(backend=self.backend)
+
+    def instrumented_merged_fn(self) -> Callable:
+        """Instrumented merged-view lookup ``(q, n_valid, delta) ->
+        (merged LB, base-plan health stats)`` for the mutable service."""
+        return self.plan.compile_instrumented_merged(backend=self.backend)
 
 
 class IndexRegistry:
@@ -122,10 +130,13 @@ class IndexRegistry:
                          name: str = DEFAULT_NAME) -> Generation:
         """Swap in a Generation made earlier with `make_generation`: the
         object that was checked is the one that goes live.  Health,
-        trace and subscriber fan-out as in `publish`."""
+        trace and subscriber fan-out as in `publish`.  A generation made
+        by another registry keeps its version; this registry's later
+        versions stay above it."""
         with self._lock:
             self._current[name] = gen
             subscribers = list(self._subscribers)
+        self._versions.advance_past(gen.version)
         if self.health is not None:
             self.health.on_publish(gen)
         if self.recorder is not None:
@@ -160,6 +171,8 @@ class IndexRegistry:
             n_keys=int(data.shape[0]),
             backend=backend,
             spec=spec,
+            sample_key=(int(decode_keys(data[:1])[0]) if data.shape[0]
+                        else 1),
         )
 
     def build_and_publish(self, index, keys: np.ndarray,

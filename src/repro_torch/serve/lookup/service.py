@@ -15,10 +15,17 @@ Hot-swap: `swap_keys(new_keys)` rebuilds outside every lock and
 publishes atomically; batches in flight complete against the generation
 they were dispatched with: nothing drains, nothing blocks.
 
-This is the reference's service with its synchronous executor (serial
-take -> launch -> wait -> complete).  Options whose modules are later
-ports raise `NotImplementedError` naming the ROADMAP item: the async
-executor (item 7), range-routed shards (item 10) and autotune (item 11).
+Executors: ``executor="sync"`` is the loop above (serial take -> launch
+-> wait -> complete), the bit-exact reference every other path is held
+against.  ``executor="async"`` swaps in the continuous-batching engine
+(`serve.lookup.executor`): an executable cache of CUDA graphs keyed by
+(generation, kind, batch bucket), a dispatch thread that launches on its
+own stream without waiting, and a bounded ring of in-flight slots
+completed in FIFO order.
+
+The reference's service on one device.  Options whose modules are later
+ports raise `NotImplementedError` naming the ROADMAP item: range-routed
+shards (item 10) and autotune (item 11).
 """
 from __future__ import annotations
 
@@ -32,12 +39,15 @@ import numpy as np
 from repro_torch.core import spec as spec_mod
 from repro_torch.obs.alerts import AlertEngine, AlertRule, default_rules
 from repro_torch.obs.health import HealthMonitor
-from repro_torch.obs.trace import SpanRecorder
+from repro_torch.obs.trace import SpanRecorder, maybe_span
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.admission import LookupFuture, MicroBatcher
 from repro_torch.serve.lookup.dispatch import PAD_QUANTUM, ShardedDispatcher
+from repro_torch.serve.lookup.executor import (AsyncContext, AsyncExecutor,
+                                               ExecutableCache, WorkItem)
 from repro_torch.serve.lookup.metrics import ServiceMetrics
-from repro_torch.serve.lookup.registry import Generation, IndexRegistry
+from repro_torch.serve.lookup.registry import (DEFAULT_NAME, Generation,
+                                               IndexRegistry)
 
 
 #: The serving-default hyperparameters (the reference's).
@@ -76,13 +86,15 @@ class LookupServiceConfig:
     #: Declarative alternative to index/hyper/backend/last_mile: when
     #: set, the spec wins WHOLESALE.
     spec: Optional[spec_mod.IndexSpec] = None
-    #: Dispatch engine: "sync" (serial take -> wait -> complete).  The
-    #: reference's "async" executor is ROADMAP item 7.
+    #: Dispatch engine: "sync" (serial take -> wait -> complete, the
+    #: bit-exact reference) or "async" (continuous batching: executable
+    #: cache of CUDA graphs + double buffering + slot ring).
     executor: str = "sync"
-    #: Async in-flight slot ring depth and warm-up shapes: read only by
-    #: the async executor, so a value other than the default raises.
-    slots: int = 4
+    slots: int = 4                          # async in-flight slot ring depth
+    #: Batch buckets the async warm-up builds; () = every pow2 bucket
+    #: from pad_quantum up to padded(max_batch).
     warm_buckets: Tuple[int, ...] = ()
+    #: Scan lengths warmed alongside (each is a shape axis).
     warm_scan_lengths: Tuple[int, ...] = ()
     #: Span recorder (bounded ring of ``trace_capacity`` spans: per-
     #: request ids from admission through completion, plus hot-swap
@@ -130,13 +142,6 @@ def _refuse_later_items(cfg: LookupServiceConfig) -> None:
     if cfg.executor not in ("sync", "async"):
         raise ValueError(
             f"executor must be 'sync' or 'async', got {cfg.executor!r}")
-    if cfg.executor == "async":
-        raise NotImplementedError(
-            "executor='async' needs the async executor (ROADMAP item 7)")
-    if cfg.slots != 4 or cfg.warm_buckets or cfg.warm_scan_lengths:
-        raise NotImplementedError(
-            "slots, warm_buckets and warm_scan_lengths configure the async "
-            "executor (ROADMAP item 7)")
     if cfg.shards > 1 or cfg.replicas != 1 or cfg.topology is not None \
             or cfg.shard_tuner is not None:
         raise NotImplementedError(
@@ -150,9 +155,13 @@ def _refuse_later_items(cfg: LookupServiceConfig) -> None:
 class LookupService:
     def __init__(self, keys: np.ndarray,
                  config: Optional[LookupServiceConfig] = None,
-                 device=None, counter: Optional[MonotonicCounter] = None):
+                 device=None, counter: Optional[MonotonicCounter] = None,
+                 prebuilt: Optional[Generation] = None):
         """Serve lookups over ``keys`` on ``device`` (None: the CUDA
-        card)."""
+        card).  ``prebuilt``, a `Generation` over ``keys`` made by
+        `IndexRegistry.make_generation` (or served by another service on
+        the same device), is published as the first generation instead
+        of building one."""
         self.cfg = config if config is not None else LookupServiceConfig()
         _refuse_later_items(self.cfg)
         #: span recorder, or None when tracing is off: every
@@ -192,7 +201,19 @@ class LookupService:
         self._dispatch_lock = threading.Lock()   # one batch at a time
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self.swap_keys(keys)
+        self._warm_thread: Optional[threading.Thread] = None
+        self.exec_cache = ExecutableCache(metrics=self.metrics,
+                                          recorder=self.recorder)
+        self._async = (AsyncExecutor(self, slots=self.cfg.slots)
+                       if self.cfg.executor == "async" else None)
+        # every publish lands here (async only: invalidation on swap), so
+        # compaction rebuilds, which publish without swap_keys, evict
+        # stale executables too
+        self.registry.subscribe(self._on_publish)
+        if prebuilt is None:
+            self.swap_keys(keys)
+        else:
+            self.registry.publish_prebuilt(prebuilt)
 
     # -- index lifecycle -------------------------------------------------
     def swap_keys(self, keys: np.ndarray) -> Generation:
@@ -278,7 +299,10 @@ class LookupService:
         for run in self._runs(batch, key=lambda r: r.kind):
             self._dispatch_run(run[0].kind, run, ctx)
 
-    def _dispatch_run(self, kind: str, run, ctx) -> None:
+    def _dispatch_run(self, kind: str, run, ctx=None) -> None:
+        """Route one same-kind run; subclasses add kinds (inserts)."""
+        if ctx is None:
+            ctx = self._pin_context()
         lookup_fn, scan_for, version = ctx
         if kind == "scan":
             self._dispatch_scans(run, scan_for)
@@ -357,6 +381,111 @@ class LookupService:
             m = int(group[0].aux)
             self._complete_run(group, lambda m=m: scan_for(m))
 
+    # -- async executor plumbing ------------------------------------------
+    def _async_context(self) -> AsyncContext:
+        """Pin one generation as an executable-cache-addressable context:
+        the async analogue of `_pin_context` (a hot swap lands between
+        batches, never inside one)."""
+        gen = self.registry.current()
+        instrumented = self.health is not None
+        return AsyncContext(
+            key=(gen.version,),
+            read_fn=gen.instrumented_fn() if instrumented else gen.fn,
+            scan_fn=gen.scan_fn,
+            bind=(),
+            sample_key=gen.sample_key,
+            instrumented=instrumented)
+
+    def _async_work_items(self, batch):
+        """Lazily yield `WorkItem`s for one taken batch, in admission
+        order, with the context pinned ONCE for the whole batch (the
+        mutable subclass re-pins per run and interleaves inserts)."""
+        ctx = self._async_context()
+        for run in self._runs(batch, key=lambda r: r.kind):
+            yield from self._async_items_for_run(run[0].kind, run, ctx)
+
+    def _async_items_for_run(self, kind, run, ctx):
+        if kind == "scan":
+            # scan length is a shape axis: split like the sync path
+            for group in self._runs(run, key=lambda r: r.aux):
+                yield WorkItem(kind="scan", group=list(group), ctx=ctx,
+                               aux=int(group[0].aux))
+        else:
+            yield WorkItem(kind="read", group=list(run), ctx=ctx)
+
+    def _complete_insert_slot(self, slot) -> None:
+        """Resolve a host-ready insert slot (mutable service only)."""
+        raise NotImplementedError(
+            "insert completion on a read-only service")
+
+    def _resolved_warm_buckets(self):
+        d = self.dispatcher
+        if self.cfg.warm_buckets:
+            return tuple(sorted({d.padded_size(int(b))
+                                 for b in self.cfg.warm_buckets}))
+        # every pow2 bucket steady traffic can dispatch at: quantum ..
+        # padded(max_batch), log2-many executables, built once
+        buckets, b = [], d.padded_size(1)
+        top = d.padded_size(self.cfg.max_batch)
+        while b < top:
+            buckets.append(b)
+            b = d.padded_size(b + 1)
+        buckets.append(top)
+        return tuple(buckets)
+
+    def warm_now(self) -> int:
+        """Synchronously build the executables of the CURRENT generation
+        over the configured warm buckets; returns the number of warmed
+        cells.  `start()` runs this before serving; hot swaps re-run it
+        off-thread (`_on_publish`)."""
+        if self._async is None:
+            return 0
+        ctx = self._async_context()
+        buckets = self._resolved_warm_buckets()
+        with maybe_span(self.recorder, "warmup", cat="lifecycle",
+                        version=ctx.key[0], n_buckets=len(buckets)):
+            return self.exec_cache.warmup(
+                ctx, buckets, self.dispatcher,
+                scan_lengths=self.cfg.warm_scan_lengths)
+
+    def warm_wait(self, timeout: Optional[float] = None) -> None:
+        """Block until the background re-warm started by the last hot-swap
+        publish finishes (no-op when none is in flight)."""
+        w = self._warm_thread
+        if w is not None and w.is_alive():
+            w.join(timeout)
+
+    def _on_publish(self, name: str, gen) -> None:
+        """Registry publish hook (async only): evict stale generations'
+        executables and re-warm the new one WITHOUT blocking the publisher
+        (a compaction thread may be mid-swap holding its own locks)."""
+        if name != DEFAULT_NAME or self._async is None:
+            return
+        self.exec_cache.invalidate(keep_version=gen.version)
+        if self._thread is None:
+            # not serving: start() warms synchronously before the first
+            # dispatch
+            return
+        t = threading.Thread(target=self._warm_retry,
+                             name="lookup-warmer", daemon=True)
+        self._warm_thread = t
+        t.start()
+
+    def _warm_retry(self) -> None:
+        """Warm the current context, tolerating construction windows (the
+        mutable service publishes its first generation before its view
+        pointer exists): retry briefly, then give up; a missed warm costs
+        one build on the dispatch thread per bucket."""
+        deadline = time.perf_counter() + 5.0
+        while True:
+            try:
+                self.warm_now()
+                return
+            except Exception:   # noqa: BLE001 — warm-up is best-effort
+                if time.perf_counter() >= deadline:
+                    return
+                time.sleep(0.005)
+
     # -- index-health telemetry --------------------------------------------
     def _note_health(self, version: int, stats, t_end: float) -> None:
         """Fold one completed batch's device-reduced stats into the
@@ -378,7 +507,9 @@ class LookupService:
             snap.update(self.health.snapshot(window_s))
         snap["trace_dropped"] = float(self.recorder.n_dropped
                                       if self.recorder is not None else 0)
-        snap["inflight_saturation"] = 0.0    # no slot ring on sync
+        snap["inflight_saturation"] = (
+            snap.get("mean_inflight_slots", 0.0) / self.cfg.slots
+            if self._async is not None and self.cfg.slots else 0.0)
         snap["serving"] = 1.0 if self._thread is not None else 0.0
         return snap
 
@@ -404,10 +535,16 @@ class LookupService:
 
     def flush(self) -> bool:
         """Dispatch one due batch if any (size or deadline trigger)."""
+        if self._async is not None:
+            return self._async.flush()
         return self._dispatch_once(force=False)
 
     def drain(self) -> int:
-        """Force-dispatch until the queue is empty; returns batch count."""
+        """Force-dispatch until the queue is empty; returns batch count.
+        In async mode this also waits for every in-flight slot, so no
+        future is left unresolved when it returns."""
+        if self._async is not None:
+            return self._async.drain()
         n = 0
         while self._dispatch_once(force=True):
             n += 1
@@ -416,6 +553,12 @@ class LookupService:
     # -- background flusher ----------------------------------------------
     def start(self) -> "LookupService":
         if self._thread is not None:
+            return self
+        if self._async is not None:
+            # build the common buckets BEFORE serving: steady-state
+            # dispatch then never captures a graph
+            self.warm_now()
+            self._thread = self._async.start()
             return self
         self._stop.clear()
 
@@ -436,6 +579,13 @@ class LookupService:
         far.  The service stays usable afterwards (submit + flush/drain,
         or a later start())."""
         if self._thread is None:
+            return
+        if self._async is not None:
+            self._async.stop()
+            self._thread = None
+            w = self._warm_thread
+            if w is not None and w.is_alive():
+                w.join()   # never strand a capture thread past stop()
             return
         self._stop.set()
         self.batcher.wake()

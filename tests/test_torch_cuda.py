@@ -5,6 +5,11 @@ Run on a machine with an NVIDIA card:
 Elsewhere every test skips: whether a card is present is decided in the
 `card` fixture, at run time.
 """
+import gc
+import threading
+import time
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -344,3 +349,308 @@ def test_tuner_measures_both_backends_on_the_card(card):
     p = plan_mod.lower(res.build, encode_keys(keys, card))
     got = p.compile(res.spec.backend)(encode_keys(q, card))
     np.testing.assert_array_equal(got.cpu().numpy(), np.searchsorted(keys, q))
+
+
+# ---------------------------------------------------------------------------
+# the async executor's CUDA graphs, and the mutable service, on the card
+# ---------------------------------------------------------------------------
+def _graph_cell(card, index):
+    """A generation of ``index`` at its serving defaults on the cuda
+    backend, its host keys, and a delta of absent keys on the card."""
+    from repro_torch.mutable.delta import DeltaBuffer
+    from repro_torch.serve.lookup import IndexRegistry, default_spec
+
+    keys = sosd.generate("osm", 300_000, seed=1)
+    gen = IndexRegistry(device=card).build_and_publish(
+        default_spec(index, backend="cuda"), keys)
+    rng = np.random.default_rng(7)
+    cand = np.unique(rng.integers(int(keys[0]), int(keys[-1]), 3_000,
+                                  dtype=np.uint64))
+    fresh = np.setdiff1d(cand, keys)[:2_000]
+    delta, _ = DeltaBuffer.empty(device=card).with_inserted(keys, fresh)
+    return keys, gen, delta
+
+
+_GRAPH_KINDS = ("plain", "instrumented", "scan", "merged",
+                "merged_instrumented", "merged_scan")
+
+
+def _graph_fn(gen, delta, kind):
+    """(callable, bind, instrumented) of one executable kind."""
+    p, be = gen.plan, gen.backend
+    return {
+        "plain": (gen.fn, (), False),
+        "instrumented": (gen.instrumented_fn(), (), True),
+        "scan": (gen.scan_fn(16), (), False),
+        "merged": (p.compile_merged(be), (delta.device,), False),
+        "merged_instrumented": (gen.instrumented_merged_fn(),
+                                (delta.device,), True),
+        "merged_scan": (p.compile_merged_scan(16, be), (delta.device,),
+                        False),
+    }[kind]
+
+
+@pytest.mark.parametrize("index", ["rmi", "pgm"])
+@pytest.mark.parametrize("kind", _GRAPH_KINDS)
+def test_graph_replay_equals_eager_on_every_warmed_bucket(card, index, kind):
+    """Each executable kind, captured for every warm bucket (128 ..
+    4096), replays to exactly what the eager callable returns on the same
+    padded batch, launches the path's one kernel once a replay, and the
+    dispatcher's launch/complete halves give the eager answers."""
+    from repro_torch.serve.lookup import ShardedDispatcher
+    from repro_torch.serve.lookup.executor import (AsyncContext,
+                                                   ExecutableCache,
+                                                   GraphExecutable)
+
+    keys, gen, delta = _graph_cell(card, index)
+    fn, bind, instr = _graph_fn(gen, delta, kind)
+    d = ShardedDispatcher(device=card)
+    cache = ExecutableCache()
+    ctx = AsyncContext(key=(gen.version,), read_fn=fn,
+                       scan_fn=lambda m: fn, bind=bind,
+                       instrumented=instr)
+    cell = "read" if kind in ("plain", "instrumented", "merged",
+                              "merged_instrumented") else "scan"
+    kernel = "rmi_lookup" if index == "rmi" else "bounded_search"
+    stream = torch.cuda.Stream(card)
+    rng = np.random.default_rng(11)
+    for bucket in (128, 256, 512, 1024, 2048, 4096):
+        exe = cache.get(ctx, cell, 16 if cell == "scan" else 0, bucket,
+                        lambda: fn, d, warm=True)
+        assert isinstance(exe, GraphExecutable)
+        assert exe.captured == {"rmi_lookup": int(kernel == "rmi_lookup"),
+                                "rmi_bounds": 0,
+                                "bounded_search":
+                                    int(kernel == "bounded_search")}
+        m = int(rng.integers(bucket // 2 + 1, bucket + 1))
+        q = sosd.make_queries(keys, m, seed=bucket)
+        args = ((m,) if instr else ()) + bind
+        got = d.complete(d.launch(exe, q, args, {}, instrumented=instr,
+                                  stream=stream))
+        qt, p = d.pad_and_place(q)
+        assert p == bucket
+        want = d.finalize(fn(qt, *args), m, instrumented=instr)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if isinstance(g, tuple):
+                for gg, ww in zip(g, w):
+                    np.testing.assert_array_equal(gg, ww)
+            else:
+                np.testing.assert_array_equal(g, w)
+    stats = cache.graph_stats()
+    assert stats["graphs_built"] == 6 and stats["graph_replays"] == 6
+    assert stats["kernel_launches"][kernel] == 12   # 6 checks + 6 serving
+
+
+def test_graph_outputs_survive_the_next_replay_of_the_same_graph(card):
+    """24 batches of one bucket through the async executor's ONE graph
+    (slots=2), each launched behind ~0.5 ms of device sleep on the
+    executor's stream, while the completion thread is held back 10 ms a
+    slot, so the launches run a full ring ahead of the completions: each
+    batch answers for its own keys.  Each launch copies the graph's
+    static outputs into its slot's pinned host buffers right after its
+    replay, and slots + 2 buffer sets go round; a read of the static
+    outputs at completion, or a set reused one launch early, would hand a
+    batch the answers of a later one."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate("osm", 300_000, seed=1)
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=default_spec("rmi", backend="cuda"), executor="async",
+        slots=2, max_batch=4096, warm_buckets=(4096,)), device=card)
+    ex, d = svc._async, svc.dispatcher
+    launch, complete = d.launch, d.complete
+
+    def launch_behind_sleep(*args, **kwargs):
+        with torch.cuda.stream(ex.stream):
+            torch.cuda._sleep(1_000_000)
+        return launch(*args, **kwargs)
+
+    def complete_late(launched):
+        time.sleep(0.01)
+        return complete(launched)
+
+    d.launch, d.complete = launch_behind_sleep, complete_late
+    qs = [sosd.make_queries(keys, 4096 - 7 * i, seed=i) for i in range(24)]
+    with svc:
+        futs = [svc.submit(q) for q in qs]
+        got = [f.result(60) for f in futs]
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(g, np.searchsorted(keys, q))
+    snap = svc.metrics.snapshot()
+    assert snap["max_inflight_slots"] >= 2
+    stats = svc.exec_cache.graph_stats()
+    assert stats["graphs_built"] == 1 and stats["graph_replays"] == 24
+
+
+def _scribble(card):
+    """Allocate and write device memory of every power-of-two size from
+    512 B to 64 MiB, four of each, on the current stream: any freed block
+    of the caching allocator that fits goes back into use and is
+    overwritten.  Keep the result until the check is done."""
+    return [torch.full(((512 << k) // 8,), -1, dtype=torch.int64,
+                       device=card)
+            for k in range(18) for _ in range(4)]
+
+
+def test_a_stalled_batch_keeps_its_swapped_out_generation(card):
+    """A batch launched on generation v1 behind ~0.5 s of device sleep,
+    v2 published meanwhile with no other reference to v1 left, then a
+    garbage collection and device memory allocated and written: v1's
+    keys stay alive until the batch completes (its slot holds the graph,
+    the graph holds the plan), and the batch answers from v1."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate("osm", 300_000, seed=1)
+    other = sosd.generate("wiki", 300_000, seed=2)
+    sp = default_spec("rmi", backend="cuda")
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=sp, executor="async", warm_buckets=(4096,)), device=card)
+    v2 = svc.registry.make_generation(spec.build(sp, other, device=card),
+                                      encode_keys(other, card),
+                                      backend="cuda", spec=sp)
+    svc.warm_now()
+    v1_data = weakref.ref(svc.generation.data)
+    ex = svc._async
+    q = sosd.make_queries(keys, 4000, seed=5)
+    with torch.cuda.stream(ex.stream):
+        torch.cuda._sleep(1_000_000_000)
+    fut = svc.submit(q)
+    ex._drain_launches()                 # launched, not completed
+    svc.registry.publish_prebuilt(v2)
+    del v2
+    gc.collect()
+    assert v1_data() is not None
+    junk = _scribble(card)
+    ex._complete_ring_inline()
+    np.testing.assert_array_equal(fut.result(0), np.searchsorted(keys, q))
+    assert svc.lookup(q[:100]).tolist() == \
+        np.searchsorted(other, q[:100]).tolist()
+    del junk
+
+
+def test_a_stalled_merged_batch_keeps_its_delta(card):
+    """A merged read launched with delta d1 behind ~0.5 s of device
+    sleep, an insert that replaces d1, and a second merged read through
+    the same graph with the new delta, then a garbage collection and
+    device memory allocated and written: d1 stays alive until the first
+    batch completes (its slot holds its context), and each batch answers
+    from its own delta."""
+    from repro_torch.serve.lookup import (MutableLookupService,
+                                          MutableLookupServiceConfig)
+
+    keys = sosd.generate("amzn", 300_000, seed=4)
+    rng = np.random.default_rng(9)
+    fresh = np.setdiff1d(np.unique(rng.integers(
+        int(keys[0]), int(keys[-1]), 1_200, dtype=np.uint64)), keys)
+    first, second = fresh[:900], fresh[900:1_000]
+    svc = MutableLookupService(keys, MutableLookupServiceConfig(
+        index="rmi", backend="cuda", executor="async",
+        warm_buckets=(4096,), compact_threshold=100_000), device=card)
+    svc.mindex.insert(first)
+    svc.warm_now()
+    d1 = weakref.ref(svc.mindex.view().delta.device)
+    ex = svc._async
+    q = sosd.make_queries(np.union1d(keys, fresh), 4000, seed=6)
+    with torch.cuda.stream(ex.stream):
+        torch.cuda._sleep(1_000_000_000)
+    fut1 = svc.submit(q)
+    ex._drain_launches()
+    svc.mindex.insert(second)            # the view drops d1
+    fut2 = svc.submit(q)
+    ex._drain_launches()
+    gc.collect()
+    assert d1() is not None
+    junk = _scribble(card)
+    ex._complete_ring_inline()
+    np.testing.assert_array_equal(
+        fut1.result(0), np.searchsorted(np.union1d(keys, first), q))
+    np.testing.assert_array_equal(
+        fut2.result(0),
+        np.searchsorted(np.union1d(keys, np.union1d(first, second)), q))
+    assert svc.exec_cache.graph_stats()["graph_replays"] == 2
+    del junk
+
+
+def test_capture_after_publish_while_the_dispatch_thread_serves(card):
+    """An async service serves 4 reader threads while a hot swap publishes
+    and the warm thread captures the new generation's graphs beside the
+    dispatch thread (thread-local capture): every answer matches the key
+    set of a generation current between its submit and its result, and
+    after the re-warm no batch misses the cache."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate("wiki", 300_000, seed=2)
+    union = np.union1d(keys, keys[:-1] + 1)
+    q = sosd.make_queries(keys, 64 * 4 * 300, seed=3).reshape(4, 300, 64)
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=default_spec("pgm", backend="cuda"), executor="async",
+        warm_scan_lengths=(16,)), device=card)
+    v0 = svc.generation.version
+    sets = {v0: keys, v0 + 1: union}
+    errors, wrong = [], []
+
+    def reader(c):
+        try:
+            for i in range(300):
+                va = svc.generation.version
+                res = svc.submit(q[c, i]).result(120)
+                vb = svc.generation.version
+                if not any(np.array_equal(res, np.searchsorted(sets[v],
+                                                               q[c, i]))
+                           for v in range(va, vb + 1)):
+                    wrong.append((c, i))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    with svc:
+        ts = [threading.Thread(target=reader, args=(c,)) for c in range(4)]
+        for t in ts:
+            t.start()
+        time.sleep(0.05)
+        svc.swap_keys(union)
+        svc.warm_wait()
+        hits, misses = svc.exec_cache.counters()
+        for t in ts:
+            t.join(300)
+        tail = svc.submit(q[0, 0]).result(60)
+        hits2, misses2 = svc.exec_cache.counters()
+    assert not errors and not wrong
+    assert misses2 == misses and hits2 > hits
+    np.testing.assert_array_equal(tail, np.searchsorted(union, q[0, 0]))
+    with svc.exec_cache._mu:
+        assert all(k[0][0] == v0 + 1 for k in svc.exec_cache._exes)
+
+
+@pytest.mark.parametrize("executor", ["sync", "async"])
+def test_mutable_service_across_a_compaction_on_the_card(card, executor):
+    """A mixed read/insert/scan trace through the mutable service on the
+    card, compactions forced mid-trace and by the threshold: positions,
+    admitted flags and scan windows equal the oracle replay's."""
+    from repro_torch.serve.lookup import (MutableLookupService,
+                                          MutableLookupServiceConfig)
+    from repro_torch.workloads import (make_workload, oracle_scan_replay,
+                                       replay_on_service)
+
+    keys = sosd.generate("amzn", 200_000, seed=4)
+    wl = make_workload(keys, 3_000,
+                       mix={"read": 0.5, "insert": 0.3, "range": 0.2},
+                       seed=5, range_len=16)
+    want, want_win = oracle_scan_replay(keys, wl)
+    svc = MutableLookupService(keys, MutableLookupServiceConfig(
+        index="pgm", hyper={"eps": 64}, backend="cuda", executor=executor,
+        max_batch=512, compact_threshold=300, warm_scan_lengths=(16,)),
+        device=card)
+    with svc:
+        got, got_win = replay_on_service(wl, svc, chunk=48,
+                                         compact_every=1_000,
+                                         scan_ranges=True)
+    np.testing.assert_array_equal(got, want)
+    assert set(got_win) == set(want_win)
+    for i in want_win:
+        np.testing.assert_array_equal(got_win[i], want_win[i])
+    assert svc.metrics.snapshot()["compactions"] >= 1
+    assert svc.last_compaction_error is None

@@ -13,7 +13,10 @@ from repro_torch import convert
 from repro_torch.core import pgm, rmi, spec, tuning
 from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import ops
+from repro_torch.mutable import DeltaBuffer, MutableIndex
 from repro_torch.serve.lookup import (IndexRegistry, LookupService,
+                                      LookupServiceConfig,
+                                      MutableLookupService,
                                       ShardedDispatcher)
 
 _IMPORT_ALL = r"""
@@ -36,7 +39,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout)
-    assert res["modules"] >= 45
+    assert res["modules"] >= 55
     assert res["bad"] == [], f"port pulled in {res['bad']}"
 
 
@@ -68,10 +71,15 @@ KEYS = np.arange(1, 1_001, dtype=np.uint64) * 7
     lambda: LookupService(KEYS),
     lambda: IndexRegistry(),
     lambda: ShardedDispatcher(),
+    lambda: DeltaBuffer.empty(),
+    lambda: MutableIndex(KEYS),
+    lambda: MutableLookupService(KEYS),
+    lambda: LookupService(KEYS, LookupServiceConfig(executor="async")),
 ], ids=["rmi.build", "spec.build", "encode_keys", "prepare_f32_state",
         "rmi_from_reference", "pgm.build", "binary_search", "robin_hash",
         "from_reference", "Tuner.tune", "tuning.sweep", "LookupService",
-        "IndexRegistry", "ShardedDispatcher"])
+        "IndexRegistry", "ShardedDispatcher", "DeltaBuffer",
+        "MutableIndex", "MutableLookupService", "LookupService_async"])
 def test_device_none_raises_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()

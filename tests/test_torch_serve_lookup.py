@@ -525,10 +525,12 @@ def test_default_spec_and_config_match_reference():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (dict(executor="async"), "item 7"),
-    (dict(slots=8), "item 7"),
-    (dict(warm_buckets=(4096,)), "item 7"),
-    (dict(warm_scan_lengths=(16,)), "item 7"),
+    (dict(executor="async", shards=2), "item 10"),
+    (dict(executor="async", slots=8, replicas=2), "item 10"),
+    (dict(executor="async", warm_buckets=(4096,), topology=object()),
+     "item 10"),
+    (dict(executor="async", warm_scan_lengths=(16,), autotune=object()),
+     "item 11"),
     (dict(shards=2), "item 10"),
     (dict(replicas=2), "item 10"),
     (dict(topology=object()), "item 10"),
@@ -598,5 +600,5 @@ def test_driver_on_the_cpu_passes_doctor(tmp_path):
 def test_driver_refuses_what_waits_for_later_items():
     out = _driver("--mode", "tokens")
     assert out.returncode == 2 and "item 13" in out.stderr
-    out = _driver("--executor", "async", "--device", "cpu")
+    out = _driver("--executor", "threads", "--device", "cpu")
     assert out.returncode == 2 and "invalid choice" in out.stderr
