@@ -42,16 +42,28 @@ the sync phase's generations published prebuilt, one CUDA graph a (kind,
 bucket) captured at start and again after the swap, every dispatch one
 replay of a graph that captured one launch of the path's kernel, no
 cache miss outside the swap's re-warm, the metrics endpoint scraped on
-an ephemeral port).  On wiki the mutable service (``mutable``: a YCSB-B
+an ephemeral port), and then the same traffic range-routed (``routed``,
+``routed_async``: wiki at shards 2 and 4 on both executors and shards 2 x
+replicas 2 with a rebalance to 4 seats, amzn at shards 4 on the async
+executor with a routed swap that builds its shards; every lane on the
+one card; every answer exact, one kernel launch or graph replay a lane a
+dispatch touched, no steady-state cache miss; route skew, padded width a
+lane, graphs and re-warm time beside the broadcast run).  On wiki the
+mutable service (``mutable``: a YCSB-B
 and a YCSB-E trace, zipfian, through the async executor, a forced
 compaction and the threshold's own, every answer against
 `fast_mutable_oracle`).  Per cell the stage profile of the RMI and PGM
 plans on the cuda backend (``stage_profile``).  On amzn the spec
 ``Tuner`` over every sweep family on every 10th key, both backends timed
-(``tune``); and last the serve driver ``python -m
-repro_torch.launch.serve --mode lookup --doctor`` as a subprocess, at its
-defaults (the async executor), with ``--metrics-jsonl`` and with
-``--executor sync`` (``driver``).  One JSON line per phase; any failure
+(``tune``).  On wiki the shadow retuner (``autotune``): the mis-tuned
+BTree of the reference's tests served at 200M keys, hot-spot traffic
+fires ``workload_drift`` and one poll lands a verified swap, on
+broadcast, again over the same spec store (no sweep), and at shards 2.
+Last the serve driver ``python -m repro_torch.launch.serve --mode lookup
+--doctor`` as a subprocess, at its defaults (the async executor), with
+``--metrics-jsonl``, with ``--executor sync``, with ``--shards 2
+--replicas 2`` and with ``--autotune-daemon --autotune-store``
+(``driver``).  One JSON line per phase; any failure
 exits nonzero.  The last line is the device summary ``{"ok": true,
 "device": {...}}``.  Full results go to ``--out``.
 
@@ -69,6 +81,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -133,6 +146,21 @@ TUNE_STRIDE = 10               # the tuner sees every 10th key of the cell
 TUNE_MAX_BYTES = 1 << 20
 TUNE_CONFIGS = 3               # rungs a ladder
 TUNE_QUERIES = 1_000_000       # queries the chosen plan answers
+#: range-routed serving on `serve`'s traffic: (executor, shards, replicas,
+#: rebalance-to seats) in order; a sync run's routed generations are
+#: published prebuilt by the async runs of its shard count
+ROUTED_RUNS = {
+    "amzn": (("async", 4, 1, None),),          # with the swap of SWAP_CELL
+    "wiki": (("sync", 2, 1, None), ("async", 2, 1, None),
+             ("sync", 4, 1, None), ("async", 4, 1, None),
+             ("async", 2, 2, 4)),
+}
+AUTOTUNE_CELL = "wiki"
+#: the reference's mis-tuned BTree (every descent level scans 2,049 keys)
+AUTOTUNE_SPEC = {"sample": 1, "fanout": 2048}
+AUTOTUNE_CONFIGS = 4
+AUTOTUNE_HOT = 1_024           # lookups in the bottom 1/64 of the keys
+AUTOTUNE_AFTER = 20_000        # mixed queries answered after the swap
 DRIVER_SPEC = {"index": "rmi", "hyper": {"branching": 4096},
                "backend": "cuda"}
 
@@ -856,7 +884,7 @@ def serve_check(key_sets, q, res, v0: int, v1: int, scan: bool) -> bool:
     scan, the sentinel-padded window) on the key set of some generation
     between the one current at its submit (``v0``) and at its result."""
     import numpy as np
-    for v in range(v0, v1 + 1):
+    for v in sorted(v for v in key_sets if v0 <= v <= v1):
         ks = key_sets[v]
         lb = np.searchsorted(ks, q)
         if not scan:
@@ -946,7 +974,8 @@ def first_after_publish(spans, batches):
 
 
 def phase_serve(dev, dataset, cell, log, totals, executor="sync",
-                prebuilt=None):
+                prebuilt=None, shards=1, replicas=1, rebalance=None,
+                broadcast=None):
     """The lookup service on the cell's keys through its public entry
     points: the cell's index at the serving defaults on the cuda backend
     (health and trace on, default batch and deadline, flusher thread), 4
@@ -969,7 +998,18 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     again after the swap, and must run every dispatch as one replay of a
     graph that captured one launch of the path's kernel.  The kernel
     wrappers count a launch at capture, so the async phase's kernel
-    launches are each graph's captured launches times its replays."""
+    launches are each graph's captured launches times its replays.
+
+    ``shards > 1`` (``routed``) serves the same traffic range-routed over
+    that many shard lanes of ``replicas`` each (prebuilt: a routed
+    generation of the sync routed phase, its topology given
+    ``replicas``); ``rebalance`` re-apportions the replica seats to that
+    total once every reader is halfway; a routed swap builds its shards
+    (``swap_keys``) unless a prebuilt one is given.  Every
+    dispatch must launch the kernel once per lane it touched (sync) or
+    replay one graph per touched lane (async).  ``broadcast`` is the
+    same run's broadcast record of this executor, read beside it."""
+    import dataclasses
     import gc
     import threading
     import urllib.request
@@ -979,11 +1019,13 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     from repro_torch.kernels.common import encode_keys
     from repro_torch.obs.export import MetricsServer
     from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          RoutedGeneration, ShardTopology,
                                           default_spec)
 
     keys, queries = cell["keys"], cell["queries"]
     swap = dataset == SWAP_CELL
     aio = executor == "async"
+    routed = shards > 1
     if swap and "union" not in cell:
         delta = absent_delta(cell)
         cell["union"] = np.insert(keys, np.searchsorted(keys, delta), delta)
@@ -991,19 +1033,28 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     torch.cuda.reset_peak_memory_stats()
     cfg = LookupServiceConfig(
         spec=default_spec(SERVE_INDEX[dataset], backend="cuda"), trace=True,
-        executor=executor,
+        executor=executor, shards=shards, replicas=replicas,
         **(dict(slots=ASYNC_SLOTS, warm_scan_lengths=(SCAN_M,)) if aio
            else {}))
+    first_gen = prebuilt[0] if prebuilt else None
+    if isinstance(first_gen, RoutedGeneration) and replicas != 1:
+        t = first_gen.topology
+        first_gen = dataclasses.replace(first_gen, topology=ShardTopology(
+            split_points=t.split_points, offsets=t.offsets,
+            replicas=(replicas,) * t.n_shards, n_keys=t.n_keys))
     t0 = time.perf_counter()
-    svc = LookupService(keys, cfg, device=dev,
-                        prebuilt=prebuilt[0] if prebuilt else None)
+    svc = LookupService(keys, cfg, device=dev, prebuilt=first_gen)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     gens = [svc.generation]
     v_first = svc.generation.version
     key_sets = {v_first: keys}
-    if swap:                       # the one publisher: the next version
-        key_sets[v_first + 1] = cell["union"]
+    swap_prebuilt = bool(prebuilt) and len(prebuilt) > 1
+    if swap:
+        # the one publisher: the next version, after the shard versions
+        # of a routed build
+        key_sets[v_first + 1 + (shards if routed and not swap_prebuilt
+                                else 0)] = cell["union"]
     n_read = SERVE_CLIENTS * SERVE_READS * SERVE_KEYS
     reads = queries[:n_read].reshape(SERVE_CLIENTS, SERVE_READS, SERVE_KEYS)
     scans = queries[n_read:n_read + SERVE_SCANS * SERVE_KEYS].reshape(
@@ -1054,20 +1105,37 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     threads = [threading.Thread(target=client, args=(reads[c], False, c))
                for c in range(SERVE_CLIENTS)]
     threads.append(threading.Thread(target=client, args=(scans, True)))
-    timing, misses, scrape = {}, {}, {}
+    timing, misses, scrape, layout = {}, {}, {}, {}
 
     def serve():
+        ts = time.perf_counter()
         svc.start()
+        timing["start_s"] = time.perf_counter() - ts
         misses["after_start"] = svc.exec_cache.counters()[1]
         t_start = time.perf_counter()
         for t in threads:
             t.start()
+        if rebalance is not None:
+            # the new layout's lanes are warmed at once, as after a swap
+            for h in halfway:
+                h.wait(timeout=900)
+            misses["before_rebalance"] = svc.exec_cache.counters()[1]
+            layout["replicas_before"] = list(svc.dispatcher.replicas)
+            ts = time.perf_counter()
+            layout["replicas_after"] = list(svc.rebalance_replicas(
+                total_replicas=rebalance))
+            timing["rebalance_s"] = time.perf_counter() - ts
+            layout["lanes_epoch"] = svc.dispatcher.lanes_epoch
+            ts = time.perf_counter()
+            layout["warmed"] = svc.warm_now()
+            timing["rebalance_warm_s"] = time.perf_counter() - ts
+            misses["after_rebalance_warm"] = svc.exec_cache.counters()[1]
         if swap:
             for h in halfway:
                 h.wait(timeout=900)
             misses["before_swap"] = svc.exec_cache.counters()[1]
             ts = time.perf_counter()
-            if aio:
+            if swap_prebuilt:
                 gens.append(svc.registry.publish_prebuilt(prebuilt[1]))
             else:
                 gens.append(svc.swap_keys(cell["union"]))
@@ -1111,7 +1179,7 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
                     + done[s.args["rid_first"]].dur - s.t0) * 1e3,
              s.args["padded"]) for s in spans
             if s.name == "launch" and s.args["rid_first"] in done)
-    else:
+    else:       # the broadcast and the routed sync paths' "device" span
         batches = sorted((s.t0, s.dur * 1e3, s.args["padded"])
                          for s in spans if s.name == "device")
     first, steady = first_after_publish(spans, batches)
@@ -1128,7 +1196,8 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     # consecutive launches
     halves = {name: pct([s.dur * 1e3 for s in spans if s.name == name])
               for name in (("launch", "finalize", "stage_wait") if aio
-                           else ("pad_place", "device", "stage_wait"))}
+                           else ("pad_place", "device", "stage_wait"))
+              + (("route",) if routed else ())}
     if aio:
         # the CPU time the dispatch and completion threads spent in each;
         # a thread's CPU clock may tick in steps as coarse as 10 ms, so
@@ -1142,14 +1211,22 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     gen = svc.generation
     kernel = "rmi_lookup" if gen.plan.name == "rmi" else "bounded_search"
     graphs = svc.exec_cache.graph_stats()
-    q4 = encode_keys(queries[:svc.cfg.max_batch], dev)
-    per_batch = {"plain_ms": cuda_ms(lambda: gen.fn(q4)),
+    # the instrumented read's cost on one batch (routed: on shard 0's
+    # lane, a batch of its share of max_batch routed to it)
+    lane_gen = gen.shards[0] if routed else gen
+    lane_q = queries[:100_000]
+    if routed:
+        lane_q = lane_q[gen.topology.route(lane_q) == 0]
+    lane_q = lane_q[:svc.cfg.max_batch // shards]
+    q4 = encode_keys(lane_q, dev)
+    per_batch = {"plain_ms": cuda_ms(lambda: lane_gen.fn(q4)),
                  "instrumented_ms": cuda_ms(
-                     lambda: gen.instrumented_fn()(q4, q4.shape[0])),
+                     lambda: lane_gen.instrumented_fn()(q4, q4.shape[0])),
                  "keys": int(q4.shape[0])}
     if aio:
-        exe = svc.exec_cache._exes[((gen.version,), "read", 0,
-                                    q4.shape[0])]
+        exe = svc.exec_cache._exes[(
+            (lane_gen.version, 0) if routed else (gen.version,), "read", 0,
+            q4.shape[0])]
         exe.static_input.copy_(q4)
         per_batch["instrumented_graph_ms"] = cuda_ms(
             lambda: exe(exe.static_input, q4.shape[0]))
@@ -1157,8 +1234,14 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     svc.check_alerts()
     firing = svc.alerts.firing()
     n_req = SERVE_CLIENTS * SERVE_READS + SERVE_SCANS
+    # lanes each dispatch touched: one launch (sync) or replay (async)
+    # a touched lane, whatever the batch's kind
+    shard_rows = svc.metrics.per_shard() if routed else []
+    touched = (sum(r["batches"] for r in shard_rows) if routed
+               else snap["batches"])
     rec = {
-        "phase": "serve_async" if aio else "serve", "dataset": dataset,
+        "phase": ("routed" if routed else "serve")
+        + ("_async" if aio else ""), "dataset": dataset,
         "n": len(keys), "spec": gen.spec.to_dict(),
         "executor": svc.cfg.executor,
         "max_batch": svc.cfg.max_batch, "deadline_ms": svc.cfg.deadline_ms,
@@ -1193,7 +1276,7 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
             "disp_max", "build_disp_p99", "disp_p99_ratio",
             "bound_utilization_p99", "mean_bound_width",
             "mean_last_mile_steps", "drift_tv", "drift_n")},
-        "max_err": gen.plan.bounds.max_err,
+        "max_err": getattr(gen, "max_err", gen.plan.bounds.max_err),
         "per_batch_health_cost": per_batch,
         "alerts_firing": firing,
         "trace_spans": len(svc.recorder),
@@ -1201,6 +1284,27 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
         "staging_allocs": svc.dispatcher.staging_allocs,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
+    if routed:
+        launch_spans = [s for s in spans if s.name == ("launch" if aio
+                                                       else "device")]
+        rec.update({
+            "shards": gen.topology.n_shards,
+            "replicas": list(svc.dispatcher.replicas),
+            "topology": {k: v for k, v in gen.topology.describe().items()
+                         if k != "split_points"},
+            "layout": layout,
+            "route_skew_mean": snap["route_skew"],
+            "route_skew_max": snap["route_max_skew"],
+            "per_shard": shard_rows,
+            "lane_launches": touched,
+            "lane_launches_per_dispatch": touched / max(snap["batches"], 1),
+            # the summed padded width of a dispatch over its lane launches
+            "padded_per_lane_launch": (
+                sum(s.args["padded"] for s in launch_spans)
+                / max(touched, 1)),
+            "keys_per_lane_launch": snap["lookups"] / max(touched, 1),
+            "broadcast": broadcast,
+        })
     if aio:
         replayed = graphs["kernel_launches"].get(kernel, 0)
         rec.update({
@@ -1211,14 +1315,18 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
             "cache_hit_rate": snap["cache_hit_rate"],
             "warm_compiles": snap["warm_compiles"],
             "misses": misses,
-            # a miss between the publish and the end of its re-warm is
-            # the swap's transition; any other is a steady-state miss
-            "steady_state_misses": (
-                misses["before_swap"] + misses["end"]
-                - misses["after_rewarm"] if swap else misses["end"]),
+            # a miss between the publish (or the rebalance) and the end
+            # of its re-warm is the transition; any other is a
+            # steady-state miss
+            "steady_state_misses": misses["end"] - sum(
+                misses[b] - misses[a] for a, b in (
+                    ("before_swap", "after_rewarm"),
+                    ("before_rebalance", "after_rebalance_warm"))
+                if a in misses),
             "graphs": graphs,
             "kernel_launches_per_dispatch":
                 (replayed - graphs["warm_replays"]) / max(snap["batches"], 1),
+            "graphs_built": graphs["graphs_built"],
             "graph_replays_per_dispatch":
                 graphs["graph_replays"] / max(snap["batches"], 1),
             "mean_inflight_slots": snap["mean_inflight_slots"],
@@ -1228,45 +1336,221 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     else:
         rec["launches_per_batch"] = launched[kernel] / max(snap["batches"], 1)
     emit(rec, log)
-    name = rec["phase"]
-    check(not tally["errors"], f"{dataset} {name} clients failed: "
+    what = f"{dataset} {rec['phase']}" + (
+        f" shards {shards} x replicas {replicas}" if routed else "")
+    check(not tally["errors"], f"{what} clients failed: "
           f"{tally['errors'][:3]}")
     check(tally["checked"] == n_req and tally["bad"] == 0,
-          f"{dataset} {name}: {tally['bad']} wrong of {tally['checked']}")
+          f"{what}: {tally['bad']} wrong of {tally['checked']}")
     check(not swap or tally["after_swap"] > 0,
-          f"{dataset} {name}: no request met the swapped generation")
-    check(not firing, f"{dataset} {name}: alerts firing {firing}")
+          f"{what}: no request met the swapped generation")
+    check(not swap or gens[-1].version in key_sets,
+          f"{what}: the swap published version {gens[-1].version}, "
+          f"not one of {sorted(key_sets)}")
+    check(not firing, f"{what}: alerts firing {firing}")
+    if routed:
+        check(rec["shards"] == shards and len(shard_rows) == shards
+              and all(r["keys"] > 0 for r in shard_rows),
+              f"{what}: shard rows {shard_rows}")
     if aio:
         # every build: one eager run and one capture through the wrapper
         check(launched == {k: 2 * graphs["graphs_built"] if k == kernel
                            else 0 for k in launched},
-              f"{dataset} {name} wrappers launched {launched} for "
+              f"{what} wrappers launched {launched} for "
               f"{graphs['graphs_built']} graphs")
         check(graphs["kernel_launches"] == {
             k: graphs["graph_replays"] + graphs["warm_replays"]
             if k == kernel else 0 for k in graphs["kernel_launches"]},
-              f"{dataset} {name}: graphs launched {graphs}")
-        check(graphs["graph_replays"] == snap["batches"],
-              f"{dataset} {name}: {graphs['graph_replays']} replays for "
-              f"{snap['batches']} dispatches")
+              f"{what}: graphs launched {graphs}")
+        check(graphs["graph_replays"] == touched,
+              f"{what}: {graphs['graph_replays']} replays for "
+              f"{touched} touched lanes of {snap['batches']} dispatches")
         check(rec["steady_state_misses"] == 0,
-              f"{dataset} {name}: steady-state cache misses {misses}")
+              f"{what}: steady-state cache misses {misses}")
         check(scrape["/healthz"]["status"] == 200
               and scrape["/metrics"]["has_lookups"],
-              f"{dataset} {name}: metrics scrape {scrape}")
+              f"{what}: metrics scrape {scrape}")
         for k, v in launched.items():
             totals[k] += v + graphs["kernel_launches"].get(k, 0)
     else:
-        check(launched == {k: snap["batches"] if k == kernel else 0
+        check(launched == {k: touched if k == kernel else 0
                            for k in launched},
-              f"{dataset} {name} launched {launched} over "
-              f"{snap['batches']} batches")
+              f"{what} launched {launched} over {touched} touched lanes "
+              f"of {snap['batches']} batches")
         for k, v in launched.items():
             totals[k] += v
     del svc, gen
     gc.collect()
     torch.cuda.empty_cache()
     return rec, gens
+
+
+def broadcast_summary(rec: dict) -> dict:
+    """The readings of a broadcast serve record a routed one sits beside."""
+    halves = rec["host_halves_ms"]
+    launch = halves.get("launch") or halves.get("device")
+    return {"phase": rec["phase"],
+            "requests_per_s": rec["requests_per_s"],
+            "requests_per_s_outside_hold":
+                rec["requests_per_s_outside_hold"],
+            "launch_p50_ms": launch["p50"] if launch else None,
+            "batches": rec["batches"],
+            "p50_batch_ms": rec["p50_batch_ms"],
+            "graphs_built": rec.get("graphs", {}).get("graphs_built")}
+
+
+def phase_routed(dev, dataset, cell, log, totals, broadcast):
+    """`serve`'s traffic range-routed (``ROUTED_RUNS``): each run through
+    `phase_serve` with its shards and replicas, beside the same run's
+    broadcast records (``broadcast``: executor -> record)."""
+    import gc
+
+    import torch
+
+    recs, built = [], {}
+    for executor, shards, replicas, rebalance in ROUTED_RUNS[dataset]:
+        rec, gens = phase_serve(
+            dev, dataset, cell, log, totals, executor=executor,
+            prebuilt=built.get(shards), shards=shards, replicas=replicas,
+            rebalance=rebalance,
+            broadcast=broadcast_summary(broadcast[executor]))
+        if executor == "sync":
+            built[shards] = gens
+        recs.append(rec)
+        del gens
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_autotune(dev, cell, args, log, totals):
+    """The shadow retuner on the cell's keys, served from the reference's
+    mis-tuned BTree (fanout 2048) on the cuda backend by the async
+    executor, with ``Tuner(names=("btree",), max_configs=4,
+    backends=("cuda",))``.
+    Three services: broadcast with an empty store, broadcast again over
+    that store (its attempt must read the store and run no sweep), and
+    shards 2 with a store of its own.  Each takes hot-spot traffic in the
+    bottom 1/64 of the keys, must see ``workload_drift`` fire, and one
+    ``poll_once`` must land a swap verified with 0 divergent answers;
+    answers stay exact afterwards.  The first serves ``/autotune.json``
+    (200).  Records the seconds from the trigger to the swap, split into
+    signals, search, build and score, verify and publish."""
+    import gc
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch.autotune import AutotuneConfig
+    from repro_torch.core.spec import IndexSpec, Tuner
+    from repro_torch.data import sosd
+    from repro_torch.obs.export import MetricsServer
+    from repro_torch.serve.lookup import LookupService, LookupServiceConfig
+
+    keys = cell["keys"]
+    rng = np.random.default_rng(args.seed)
+    hot = rng.choice(keys[: len(keys) // 64], size=AUTOTUNE_HOT)
+    after = sosd.make_queries(keys, AUTOTUNE_AFTER, seed=args.seed + 1)
+    recs = []
+    with tempfile.TemporaryDirectory() as root:
+        for label, shards, store in (("broadcast", 1, "a"),
+                                     ("broadcast_warm_store", 1, "a"),
+                                     ("shards_2", 2, "b")):
+            at = AutotuneConfig(
+                hysteresis_s=0.0, cooldown_s=0.0, window_s=1.0,
+                calibrate=True, store_dir=os.path.join(root, store),
+                tuner=Tuner(names=("btree",), max_configs=AUTOTUNE_CONFIGS,
+                            backends=("cuda",)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            svc = LookupService(keys, LookupServiceConfig(
+                spec=IndexSpec("btree", AUTOTUNE_SPEC,
+                               backend="cuda").validated(),
+                executor="async", shards=shards, autotune=at), device=dev)
+            setup_s = time.perf_counter() - t0
+            out = {}
+
+            def run():
+                with svc:
+                    time.sleep(1.2)    # the drift window holds hot traffic
+                    out["hot_exact"] = bool(np.array_equal(
+                        svc.lookup(hot, timeout=600),
+                        np.searchsorted(keys, hot)))
+                    svc.check_alerts(window_s=1.0)
+                    out["firing"] = svc.alerts.firing()
+                    t = time.perf_counter()
+                    out["decision"] = svc.autotune.poll_once()
+                    out["trigger_to_swap_s"] = time.perf_counter() - t
+                    t = time.perf_counter()
+                    svc.warm_wait()
+                    out["rewarm_s"] = time.perf_counter() - t
+                    futs = [svc.submit(after[i:i + SERVE_KEYS])
+                            for i in range(0, len(after), SERVE_KEYS)]
+                    got = np.concatenate([f.result(600) for f in futs])
+                    out["after_exact"] = bool(np.array_equal(
+                        got, np.searchsorted(keys, after)))
+                    if label == "broadcast":
+                        with MetricsServer(svc, port=0) as srv:
+                            with urllib.request.urlopen(
+                                    f"http://127.0.0.1:{srv.port}"
+                                    "/autotune.json", timeout=30) as r:
+                                doc = json.loads(r.read().decode())
+                                out["autotune_json"] = {
+                                    "status": r.status,
+                                    "counters": doc["counters"]}
+
+            _, launched = driven(run)
+            d = out["decision"] or {}
+            graphs = svc.exec_cache.graph_stats()
+            gen = svc.generation
+            rec = {"phase": "autotune", "run": label, "n": len(keys),
+                   "shards": shards,
+                   "incumbent": {"index": "btree", "hyper": AUTOTUNE_SPEC},
+                   "setup_s": setup_s, "hot_lookups": AUTOTUNE_HOT,
+                   "firing": out["firing"],
+                   "trigger_to_swap_s": out["trigger_to_swap_s"],
+                   "rewarm_s": out["rewarm_s"], "decision": d,
+                   "serving_specs": (
+                       [g.spec.to_dict() for g in gen.shards]
+                       if shards > 1 else [gen.spec.to_dict()]),
+                   "n_sweeps": svc.autotune.n_sweeps,
+                   "n_cache_hits": svc.autotune.n_cache_hits,
+                   "hot_exact": out["hot_exact"],
+                   "after_queries": len(after),
+                   "after_exact": out["after_exact"],
+                   "autotune_json": out.get("autotune_json"),
+                   "launches": launched, "graphs": graphs,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            emit(rec, log)
+            what = f"autotune {label}"
+            check(out["hot_exact"] and out["after_exact"],
+                  f"{what}: answers differ from np.searchsorted")
+            check("workload_drift" in out["firing"],
+                  f"{what}: workload_drift not firing ({out['firing']})")
+            check(d.get("action") == "swapped"
+                  and d.get("trigger") == "workload_drift"
+                  and d["verify"]["divergent"] == 0,
+                  f"{what}: decision {d}")
+            if label == "broadcast_warm_store":
+                check(d["cache_hit"] and not d["swept"]
+                      and svc.autotune.n_sweeps == 0,
+                      f"{what}: the store was not read ({d})")
+            else:
+                check(not d["cache_hit"] and svc.autotune.n_sweeps == 1,
+                      f"{what}: expected one sweep ({d})")
+            if label == "broadcast":
+                check(out["autotune_json"]["status"] == 200,
+                      f"{what}: /autotune.json {out['autotune_json']}")
+            for k, v in launched.items():
+                totals[k] += v + graphs["kernel_launches"].get(k, 0)
+            recs.append(rec)
+            del svc, gen
+            gc.collect()
+            torch.cuda.empty_cache()
+    return recs
 
 
 def phase_mutable(dev, cell, args, log, totals):
@@ -1508,9 +1792,13 @@ def phase_tune(dev, cell, args, log, totals):
 
 def phase_driver(log):
     """The serve driver as a user runs it, with ``--doctor`` and an RMI
-    spec on the cuda backend, three times: at its defaults (the async
+    spec on the cuda backend, five times: at its defaults (the async
     executor), with ``--metrics-jsonl`` (the file it writes is parsed),
-    and with ``--executor sync``.  Each must exit 0."""
+    with ``--executor sync``, routed with ``--shards 2 --replicas 2``, and
+    with ``--autotune-daemon --autotune-store`` (a temporary directory).
+    Each must exit 0."""
+    import tempfile
+
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")]
@@ -1519,8 +1807,11 @@ def phase_driver(log):
     os.makedirs(os.path.dirname(jsonl), exist_ok=True)
     if os.path.exists(jsonl):
         os.remove(jsonl)
+    store = tempfile.mkdtemp(prefix="autotune_store_")
     runs = {"default": [], "metrics_jsonl": ["--metrics-jsonl", jsonl],
-            "sync": ["--executor", "sync"]}
+            "sync": ["--executor", "sync"],
+            "routed": ["--shards", "2", "--replicas", "2"],
+            "autotune": ["--autotune-daemon", "--autotune-store", store]}
     out = {}
     for label, extra in runs.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
@@ -1548,7 +1839,15 @@ def phase_driver(log):
         if label == "metrics_jsonl":
             check(rec["jsonl_lines"] >= 1 and rec["jsonl_last_lookups"] > 0,
                   f"serve driver wrote {rec['jsonl_lines']} JSONL lines")
+        if label == "routed":
+            check("'replicas': [2, 2]" in res.stdout
+                  and "over 2 shard(s)" in res.stdout,
+                  "serve driver (routed) did not serve 2 x 2 lanes")
+        if label == "autotune":
+            check("autotune: daemon=up" in res.stdout,
+                  "serve driver (autotune) daemon not up")
         out[label] = rec
+    shutil.rmtree(store, ignore_errors=True)
     return out
 
 
@@ -1602,15 +1901,23 @@ def main(argv=None) -> int:
         serve, gens = phase_serve(dev, ds, cell, log, totals)
         serve_async, _ = phase_serve(dev, ds, cell, log, totals,
                                      executor="async", prebuilt=gens)
+        del gens
+        gc.collect()
+        torch.cuda.empty_cache()
+        routed = phase_routed(dev, ds, cell, log, totals,
+                              {"sync": serve, "async": serve_async})
         cells[ds] = {"end_to_end": e2e, "profile": profile,
                      "kernels": kernels, "families": families,
-                     "serve": serve, "serve_async": serve_async}
-        del gens
+                     "serve": serve, "serve_async": serve_async,
+                     "routed": routed}
         if ds == MUTABLE_CELL:
             cells[ds]["mutable"] = phase_mutable(dev, cell, args, log,
                                                  totals)
         if ds == TUNE_CELL:
             cells[ds]["tune"] = phase_tune(dev, cell, args, log, totals)
+        if ds == AUTOTUNE_CELL:
+            cells[ds]["autotune"] = phase_autotune(dev, cell, args, log,
+                                                   totals)
         del cell
         gc.collect()
         torch.cuda.empty_cache()

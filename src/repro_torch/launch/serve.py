@@ -13,6 +13,11 @@ CPU, where the kernels' plain versions run).  ``--spec`` takes one
 ``--executor`` picks the dispatch engine: ``async`` (the default, as in
 the reference: CUDA graphs of the plan's callables in an executable
 cache, a slot ring of in-flight batches) or ``sync`` (the serial loop).
+``--shards N`` range-routes the key space over N per-shard indexes
+(scatter/gather dispatch; on one card every lane runs on it) and
+``--replicas R`` gives each shard R read lanes.  ``--autotune-daemon``
+starts the shadow retuner beside the service and ``--autotune-store
+DIR`` persists its tuned specs.
 
 Ops surface: ``--metrics-port`` starts the stdlib HTTP exporter (GET
 /metrics for Prometheus text, /metrics.json, /trace.json, /health.json,
@@ -22,13 +27,11 @@ Chrome-trace JSON, ``--slo-p99-ms`` arms the windowed error-budget
 tracking, and index health is instrumented by default (``--no-health``
 turns it off): the summary prints the health line (displacement p99
 against the error bound, drift) and the alert verdict.  ``--doctor``
-exits nonzero when an alert is firing at the end of the run or an answer
-is wrong.
+exits nonzero when an alert is firing at the end of the run, an answer
+is wrong, or the autotune daemon thread died during the run.
 
 The lookup mode of the reference's `repro.launch.serve`.  Token mode
-waits for the LM scaffolding (ROADMAP item 13), ``--shards`` and
-``--replicas`` for range-routed serving (item 10) and the autotune flags
-for autotune (item 11).
+waits for the LM scaffolding (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -51,15 +54,24 @@ def run_lookup(args) -> None:
     # --spec takes one declarative IndexSpec (JSON) over the index name
     sp = (IndexSpec.from_json(args.spec) if args.spec
           else default_spec(args.index))
+    at_cfg = None
+    if args.autotune_daemon or args.autotune_store:
+        from repro_torch.autotune import AutotuneConfig
+        at_cfg = AutotuneConfig(daemon=args.autotune_daemon,
+                                store_dir=args.autotune_store)
     t0 = time.time()
     svc = LookupService(keys, LookupServiceConfig(
         spec=sp, max_batch=args.max_batch,
         deadline_ms=args.deadline_ms, executor=args.executor,
+        shards=args.shards, replicas=args.replicas,
         trace=bool(args.trace_out), slo_p99_ms=args.slo_p99_ms,
-        health=not args.no_health), device=args.device)
+        health=not args.no_health, autotune=at_cfg), device=args.device)
     print(f"serving spec: {svc.generation.spec.to_json()} "
           f"(executor={args.executor}, device={svc.dispatcher.device}, "
           f"built in {time.time() - t0:.2f}s)")
+    topo = getattr(svc.generation, "topology", None)
+    if topo is not None:
+        print(f"topology: {topo.describe()}")
     q = sosd.make_queries(keys, args.requests * args.keys_per_request, seed=2)
 
     with contextlib.ExitStack() as stack:
@@ -75,11 +87,16 @@ def run_lookup(args) -> None:
                 svc, args.metrics_jsonl, interval_s=1.0,
                 window_s=args.window_s))
         t0 = time.time()
+        at_dead = False
         with svc:
             futs = [svc.submit(q[i * args.keys_per_request:
                                  (i + 1) * args.keys_per_request])
                     for i in range(args.requests)]
             outs = [f.result(timeout=120.0) for f in futs]
+            # probe the retuner thread BEFORE stop() shuts it down on
+            # purpose: --doctor must tell "died" from "stopped"
+            at_dead = (svc.autotune is not None and svc.autotune.cfg.daemon
+                       and not svc.autotune.alive)
         dt = time.time() - t0
 
     got = np.concatenate(outs)
@@ -116,8 +133,10 @@ def run_lookup(args) -> None:
     firing = svc.alerts.firing()
     if not args.no_health:
         h = svc.health_snapshot(max(args.window_s, dt + 1.0))
+        gen = svc.generation
+        max_err = int(getattr(gen, "max_err", gen.plan.bounds.max_err))
         print(f"health: disp p99 {h['disp_p99']:.0f} of max_err "
-              f"{svc.generation.plan.bounds.max_err} "
+              f"{max_err} "
               f"(bound utilization {h['bound_utilization_p99']:.2f}, "
               f"{h['disp_p99_ratio']:.2f}x build), "
               f"last-mile steps {h['mean_last_mile_steps']:.1f}, "
@@ -127,8 +146,21 @@ def run_lookup(args) -> None:
         print(f"alert {e['rule']} {e['state']}: {e['key']}={e['value']:.3g} "
               f"({e['op']} {e['threshold']:.3g}) — {e['action']}")
     print("alerts: " + (", ".join(firing) if firing else "none firing"))
+    if svc.autotune is not None:
+        st = svc.autotune.status()
+        lt = st["last_trigger"]
+        daemon_state = ("DEAD" if at_dead
+                        else "up" if st["daemon"] else "off")
+        print(f"autotune: daemon={daemon_state} "
+              f"triggered={st['n_triggered']} swapped={st['n_swapped']} "
+              f"rejected={st['n_rejected']}, "
+              f"last trigger {lt['rule'] if lt else 'none'}, "
+              f"last verdict {st['last_verdict'] or 'none'}")
+        if at_dead:
+            print(f"autotune: retuner thread died: "
+                  f"{st['last_error'] or 'unknown error'}")
     print(f"exact vs lower_bound oracle: {exact}")
-    if args.doctor and (firing or not exact):
+    if args.doctor and (firing or not exact or at_dead):
         raise SystemExit(1)
 
 
@@ -153,6 +185,15 @@ def main(argv=None) -> None:
     ap.add_argument("--executor", choices=("sync", "async"), default="async",
                     help="lookup dispatch engine: the continuous-batching "
                          "async executor (default) or the serial sync loop")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="range-routed serving topology: partition the "
+                         "key space into this many equal-count ranges "
+                         "with per-shard indexes and scatter/gather "
+                         "dispatch (1 = broadcast)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="read fan-out per shard (routed topology only): "
+                         "each shard's lookups round-robin over this many "
+                         "replica lanes")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA "
                          "card; 'cpu' runs the kernels' plain versions)")
@@ -175,9 +216,20 @@ def main(argv=None) -> None:
     ap.add_argument("--no-health", action="store_true",
                     help="disable index-health instrumentation; reads "
                          "dispatch the plain lookup")
+    ap.add_argument("--autotune-daemon", action="store_true",
+                    help="start the shadow-retuner daemon: workload-drift, "
+                         "error or SLO alerts trigger an off-hot-path "
+                         "retune, verified bit-exact against the oracle "
+                         "before hot-swapping")
+    ap.add_argument("--autotune-store", default=None,
+                    help="spec-artifact store directory: tuned specs "
+                         "persist keyed by (dataset fingerprint, byte "
+                         "budget, workload signature) so a restart on "
+                         "the same workload skips the ladder sweep")
     ap.add_argument("--doctor", action="store_true",
                     help="one-shot health check: exit 1 when any alert "
-                         "is firing or the oracle check fails")
+                         "is firing, the oracle check fails, or the "
+                         "autotune daemon thread died during the run")
     args = ap.parse_args(argv)
     if args.mode == "tokens":
         ap.error("--mode tokens needs the LM scaffolding (ROADMAP item 13)")

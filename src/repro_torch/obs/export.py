@@ -23,8 +23,7 @@ like.  Surfaces:
                     alert-engine document, evaluated at request time),
                     /autotune.json (the shadow retuner's config,
                     counters, and decision history when one is attached;
-                    404 without one, which every port service is until
-                    autotune is ported),
+                    404 without one),
                     /healthz (200/503 from the provider's
                     `health_status` when it has one — stopped service
                     or firing critical alert answers 503)

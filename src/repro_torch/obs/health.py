@@ -25,9 +25,9 @@ O(batch).  This module is the host half:
                      generation's health into the alert-rule namespace.
 
 Everything here is numpy + stdlib; the serve stack imports *us*.  A
-copy of the reference's `repro.obs.health` for one broadcast generation
-at a time (its routed shard-group views wait for range-routed serving),
-held equal to it by `tests/test_torch_obs.py`.
+copy of the reference's `repro.obs.health`, routed shard-group views
+included, held equal to it by `tests/test_torch_obs.py` and
+`tests/test_torch_topology.py`.
 """
 from __future__ import annotations
 
@@ -112,11 +112,15 @@ class GenerationHealth:
 
     def __init__(self, version: int, index: str, n_keys: int, max_err: int,
                  *, build_disp_p99: float = 0.0, slot_s: float = 0.5,
-                 n_slots: int = 240, clock=time.perf_counter):
+                 n_slots: int = 240, clock=time.perf_counter,
+                 shard: Optional[int] = None):
         self.version = int(version)
         self.index = str(index)
         self.n_keys = int(n_keys)
         self.max_err = int(max_err)
+        #: shard index inside a routed generation set (None = broadcast)
+        #: — surfaces as the ``shard`` key of `/health.json` records
+        self.shard = shard
         #: build-time p99 displacement of the generation's own keys
         #: (`LookupPlan.build_displacement_quantile`): the baseline the
         #: live `disp_p99_ratio` alert key is relative to
@@ -274,6 +278,8 @@ class GenerationHealth:
         doc.update(index=self.index, n_keys=self.n_keys,
                    max_err=self.max_err,
                    traffic_lifetime=int(self.traffic_total.sum()))
+        if self.shard is not None:
+            doc["shard"] = int(self.shard)
         return doc
 
 
@@ -309,15 +315,20 @@ class HealthMonitor:
         self._records: "collections.OrderedDict[int, GenerationHealth]" = \
             collections.OrderedDict()
         self._latest: Optional[GenerationHealth] = None
+        #: versions of the live routed shard group (None = broadcast):
+        #: set by `on_publish_group`, consumed by `snapshot` to merge
+        self._group: Optional[tuple] = None
 
     # -- registry hooks ---------------------------------------------------
-    def _make_record(self, gen) -> GenerationHealth:
+    def _make_record(self, gen,
+                     shard: Optional[int] = None) -> GenerationHealth:
         bq = getattr(gen.plan, "build_displacement_quantile", None)
         return GenerationHealth(
             version=gen.version, index=gen.plan.name, n_keys=gen.n_keys,
             max_err=int(gen.plan.bounds.max_err),
             build_disp_p99=float(bq(0.99)) if bq is not None else 0.0,
-            slot_s=self.slot_s, n_slots=self.n_slots, clock=self._clock)
+            slot_s=self.slot_s, n_slots=self.n_slots, clock=self._clock,
+            shard=shard)
 
     def on_publish(self, gen) -> None:
         """New generation published (duck-typed on the `Generation`
@@ -329,7 +340,28 @@ class HealthMonitor:
         with self._mu:
             self._records[rec.version] = rec
             self._latest = rec
+            self._group = None
             while len(self._records) > self.keep:
+                self._records.popitem(last=False)
+
+    def on_publish_group(self, gens) -> None:
+        """Routed publish: one record PER SHARD
+        generation, tagged with its shard index, plus a group marker so
+        `snapshot` answers the merged view.  Per-shard records keep
+        their own drift windows — a hot range shifting inside one shard
+        is that shard's alert, not averaged away globally."""
+        recs = [self._make_record(gen, shard=getattr(gen, "shard", s))
+                for s, gen in enumerate(gens)]
+        with self._mu:
+            for rec in recs:
+                self._records[rec.version] = rec
+            self._latest = recs[-1] if recs else self._latest
+            self._group = tuple(rec.version for rec in recs)
+            # never trim away a member of the live shard group
+            while len(self._records) > max(self.keep, len(recs)):
+                ver, _ = next(iter(self._records.items()))
+                if self._group is not None and ver in self._group:
+                    break
                 self._records.popitem(last=False)
 
     # -- ingestion --------------------------------------------------------
@@ -359,9 +391,90 @@ class HealthMonitor:
             recs = list(self._records.values())
         return [r.record(window_s) for r in recs]
 
+    def merged_snapshot(self, versions, window_s: float = 10.0
+                        ) -> Dict[str, float]:
+        """One flat health view over a routed shard group: displacement
+        histograms and count sums merge exactly (they are plain sums of
+        per-batch reductions); drift TV is the traffic-mass-weighted
+        mean of per-shard TVs (each shard's window is compared against
+        its OWN build distribution — a global uniform baseline would
+        misread routing itself as drift)."""
+        with self._mu:
+            recs = [self._records.get(int(v)) for v in versions]
+        recs = [r for r in recs if r is not None]
+        if not recs:
+            return _zero_snapshot()
+        agg = GenerationHealth(
+            version=max(r.version for r in recs), index=recs[0].index,
+            n_keys=sum(r.n_keys for r in recs),
+            max_err=max(r.max_err for r in recs),
+            build_disp_p99=max(r.build_disp_p99 for r in recs),
+            slot_s=self.slot_s, n_slots=1, clock=self._clock)
+        tv_num, n_window = 0.0, 0
+        for r in recs:
+            with r._mu:
+                agg.n += r.n
+                agg.disp_hist += r.disp_hist
+                agg.disp_sum += r.disp_sum
+                agg.disp_max = max(agg.disp_max, r.disp_max)
+                agg.width_sum += r.width_sum
+                agg.steps_sum += r.steps_sum
+            tv, nw = r.drift(window_s)
+            tv_num += tv * nw
+            n_window += nw
+        snap = agg.snapshot(window_s)
+        snap["drift_tv"] = tv_num / n_window if n_window else 0.0
+        snap["drift_n"] = float(n_window)
+        snap["health_shards"] = float(len(recs))
+        return snap
+
+    def global_traffic_hist(self, window_s: float = 10.0
+                            ) -> Optional[np.ndarray]:
+        """The trailing window's traffic histogram in GLOBAL rank space —
+        the autotune retuner's workload signature / objective input.
+
+        Broadcast: the current generation's window verbatim.  Routed
+        group: each shard's local-rank histogram is re-binned into the
+        global rank axis (shards ordered by shard index, offsets from
+        their key counts) by landing each local bucket's mass at its
+        midpoint rank — exact to within one global bucket, which is
+        finer than the signature quantization consuming it.  None
+        before any publish."""
+        with self._mu:
+            group = self._group
+            latest = self._latest
+        if group is None:
+            return None if latest is None \
+                else latest.traffic_window(window_s)
+        with self._mu:
+            recs = [self._records.get(int(v)) for v in group]
+        recs = sorted([r for r in recs if r is not None],
+                      key=lambda r: (r.shard if r.shard is not None else 0))
+        if not recs:
+            return None
+        k = HEALTH_TRAFFIC_BUCKETS
+        n_total = sum(r.n_keys for r in recs)
+        merged = np.zeros(k, np.int64)
+        off = 0
+        for r in recs:
+            local = r.traffic_window(window_s)
+            edges = (np.arange(k + 1, dtype=np.int64) * r.n_keys
+                     + k - 1) // k
+            mids = np.minimum((edges[:-1] + edges[1:]) // 2,
+                              max(0, r.n_keys - 1))
+            g = np.minimum((off + mids) * k // max(1, n_total), k - 1)
+            np.add.at(merged, g, local)
+            off += r.n_keys
+        return merged
+
     def snapshot(self, window_s: float = 10.0) -> Dict[str, float]:
         """The CURRENT generation's flat health keys (zeros before any
-        publish, so alert rules always see their keys)."""
+        publish, so alert rules always see their keys).  With a routed
+        group live, the merged cross-shard view."""
+        with self._mu:
+            group = self._group
+        if group is not None:
+            return self.merged_snapshot(group, window_s)
         rec = self.current()
         return rec.snapshot(window_s) if rec is not None \
             else _zero_snapshot()

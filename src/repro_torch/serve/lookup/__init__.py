@@ -9,22 +9,26 @@ through per-request futures, by the synchronous loop or by the async
 executor (CUDA graphs in an executable cache, a slot ring).  Index
 generations hot-swap atomically: a rebuild on a fresh key set becomes
 visible between batches, never inside one.  `MutableLookupService` adds
-inserts and compaction.  The reference's range-routed topology is a later
-port.
+inserts and compaction; a `ShardTopology` range-routes the key space
+over per-shard generations (`RoutedDispatcher`).
 """
 from repro_torch.serve.lookup.admission import (ClientBacklogFull,
                                                 LookupFuture, MicroBatcher)
-from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM,
+from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM, RoutedContext,
+                                               RoutedDispatcher,
                                                ShardedDispatcher, make_plan)
 from repro_torch.serve.lookup.executor import (AsyncContext, AsyncExecutor,
                                                ExecutableCache)
 from repro_torch.serve.lookup.metrics import ServiceMetrics
 from repro_torch.serve.lookup.mutable_service import (
     MutableLookupService, MutableLookupServiceConfig)
-from repro_torch.serve.lookup.registry import Generation, IndexRegistry
+from repro_torch.serve.lookup.registry import (Generation, IndexRegistry,
+                                               RoutedGeneration)
 from repro_torch.serve.lookup.service import (DEFAULT_HYPER, LookupService,
                                               LookupServiceConfig,
                                               default_spec)
+from repro_torch.serve.lookup.topology import (ShardTopology,
+                                               shard_replica_groups)
 
 __all__ = [
     "DEFAULT_HYPER",
@@ -45,4 +49,9 @@ __all__ = [
     "LookupServiceConfig",
     "MutableLookupService",
     "MutableLookupServiceConfig",
+    "RoutedContext",
+    "RoutedDispatcher",
+    "RoutedGeneration",
+    "ShardTopology",
+    "shard_replica_groups",
 ]

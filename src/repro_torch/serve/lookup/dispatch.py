@@ -10,8 +10,10 @@ The bucket bounds the distinct batch shapes at log2(max batch).  Pad
 lanes repeat the first real key and are sliced off at completion.
 
 This is the reference's `repro.serve.lookup.dispatch.ShardedDispatcher`
-on ONE device: ``n_shards`` is 1 and there is no mesh (range-routed
-dispatch over several cards is a later port).
+on ONE device: ``n_shards`` is 1 and there is no mesh.  Range-routed
+dispatch (`RoutedDispatcher`) runs one such dispatcher per (shard,
+replica) lane; on one card every lane shares it, each with its own
+staging buffers and copy events.
 
 Staging reuse: the host-to-device copy of a pinned buffer is
 asynchronous, and the next batch of the same bucket pads into the same
@@ -40,7 +42,8 @@ which rewrites its static outputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +51,7 @@ import torch
 from repro_torch.core import plan as plan_mod
 from repro_torch.kernels.common import SIGN_BIT, decode_keys, resolve_device
 from repro_torch.obs.trace import maybe_span
+from repro_torch.serve.lookup.topology import shard_replica_groups
 
 #: Smallest dispatch width: keeps tiny deadline-flush batches from
 #: producing one shape per size.
@@ -259,3 +263,247 @@ class ShardedDispatcher:
                         padded=int(p), n_shards=self.n_shards):
             out = fn(q, int(keys.size)) if n_valid_arg else fn(q)
             return self.finalize(out, keys.size, instrumented=n_valid_arg)
+
+
+# ---------------------------------------------------------------------------
+# Range-routed dispatch
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RoutedContext:
+    """Everything one routed batch pins at dispatch time.
+
+    ``lane_ctxs[s][r]`` is the executor context (read/scan callables +
+    cache key) of replica ``r`` of shard ``s``: the executable cache
+    keys on ``(shard generation version, replica)``, so each lane has
+    its own graphs.  Holding this context holds every lane's shard
+    generation (through its callables) and the scan heads of the next
+    shards, so a slot that keeps it keeps them alive until it completes.
+    Fields are untyped: the executor imports this class, not the other
+    way round.
+    """
+
+    topology: Any                       # ShardTopology
+    lane_ctxs: Tuple[Tuple[Any, ...], ...]
+    offsets: Tuple[int, ...]
+    versions: Tuple[int, ...]           # per-shard generation versions
+    version: int                        # RoutedGeneration version
+    instrumented: bool = False
+
+    @property
+    def key(self):
+        """Executor slot identity: mirrors AsyncContext.key[0]."""
+        return (self.version,)
+
+
+class _RoutedHandle:
+    """One launched routed batch: per-shard `Launched` outputs plus the
+    inverse permutation that restores admission order at completion.
+    ``exes`` holds each touched lane's executable until the batch is
+    done."""
+
+    def __init__(self, subs, order, counts, padded, m, kind,
+                 instrumented, rctx, exes=()):
+        self.subs = subs                # [(shard, Launched), ...]
+        self.order = order              # admission index per sorted key
+        self.counts = counts            # keys per shard (all shards)
+        self.padded = padded            # summed per-shard padded sizes
+        self.m = m
+        self.kind = kind
+        self.instrumented = instrumented
+        self.rctx = rctx
+        self.exes = tuple(exes)
+
+    def finalize(self):
+        """Wait per shard, lift local ranks to global (``+ offsets[s]``),
+        and gather through the inverse permutation: results come back in
+        exact admission order, which keeps routed completion FIFO per
+        request.  Returns ``(result, stats, padded)`` where ``stats`` is
+        a list of ``(shard generation version, packed stats)``.
+        """
+        offs = self.rctx.offsets
+        starts = np.zeros(len(self.counts) + 1, dtype=np.int64)
+        np.cumsum(self.counts, out=starts[1:])
+        pos = np.empty(self.m, dtype=np.int64)
+        win = None
+        stats = []
+        for s, launched in self.subs:
+            c = int(self.counts[s])
+            fin = ShardedDispatcher.complete(launched)
+            if self.instrumented:
+                fin, st = fin
+                stats.append((self.rctx.versions[s], st))
+            idx = self.order[starts[s]:starts[s] + c]
+            if isinstance(fin, tuple):        # scan: (pos, window)
+                if win is None:
+                    win = np.empty((self.m,) + fin[1].shape[1:],
+                                   fin[1].dtype)
+                pos[idx] = np.asarray(fin[0], dtype=np.int64) + offs[s]
+                win[idx] = fin[1]
+            else:
+                pos[idx] = fin + offs[s]
+        if win is not None:
+            return (pos, win), stats, self.padded
+        return pos, stats, self.padded
+
+
+class RoutedDispatcher:
+    """Scatter/gather dispatch over range-partitioned shard lanes.
+
+    One single-device `ShardedDispatcher` per (shard, replica) lane:
+    each lane reuses the broadcast dispatcher's padding, staging and
+    placement verbatim, on its own device.  The route step buckets each
+    admitted key to its owning shard (host searchsorted at admission, or
+    `ShardTopology.route`); per-shard sub-batches launch without
+    waiting, and `_RoutedHandle.finalize` gathers them back into
+    admission order.  Per-lane work drops from O(batch) to
+    O(batch/shards).
+
+    ``devices`` are the cards the lanes are spread over (round robin,
+    `shard_replica_groups`); every shard generation a lane runs must
+    live on that lane's device.  The service builds every shard on its
+    one device and passes only that device, so on one card every lane
+    shares it.
+    """
+
+    def __init__(self, topology, devices=None,
+                 pad_quantum: int = PAD_QUANTUM, recorder=None):
+        self.pad_quantum = int(pad_quantum)
+        self.recorder = recorder
+        self._rr_lock = threading.Lock()
+        self.lanes_epoch = 0
+        self._devices = ([resolve_device(None)] if devices is None
+                         else [torch.device(d) for d in devices])
+        #: the first lane device (the one card the service serves on)
+        self.device = self._devices[0]
+        self._build_lanes(topology)
+
+    def _build_lanes(self, topology):
+        groups = shard_replica_groups(self._devices, topology.replicas)
+        self.lanes = tuple(
+            tuple(ShardedDispatcher(device=dev,
+                                    pad_quantum=self.pad_quantum,
+                                    recorder=self.recorder)
+                  for dev in grp)
+            for grp in groups)
+        self._rr = [0] * len(groups)
+        self.replicas = tuple(topology.replicas)
+
+    def set_replicas(self, topology) -> bool:
+        """Rebuild lanes when the shard/replica layout changes; bumps
+        ``lanes_epoch`` so cached lane contexts are re-derived."""
+        if (len(self.lanes) == topology.n_shards
+                and self.replicas == tuple(topology.replicas)):
+            return False
+        self._build_lanes(topology)
+        self.lanes_epoch += 1
+        return True
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.lanes)
+
+    def padded_size(self, m: int) -> int:
+        """Worst-case single-lane bucket for warm planning (actual
+        routed padding is per sub-batch)."""
+        return self.lanes[0][0].padded_size(m)
+
+    def _pick(self, s: int) -> int:
+        """Round-robin read fan-out over shard ``s``'s replicas."""
+        with self._rr_lock:
+            r = self._rr[s]
+            self._rr[s] = (r + 1) % len(self.lanes[s])
+        return r
+
+    @property
+    def staging_allocs(self) -> int:
+        return sum(d.staging_allocs for grp in self.lanes for d in grp)
+
+    @property
+    def staging_hits(self) -> int:
+        return sum(d.staging_hits for grp in self.lanes for d in grp)
+
+    @staticmethod
+    def routes_for(group, topology):
+        """Admission-time shard ids for a batch of requests, or None if
+        any request missed the route step or was routed against a
+        different (hot-swapped) topology: identity, not equality, so a
+        republish forces a re-route."""
+        sids = []
+        for req in group:
+            route = getattr(req, "route", None)
+            if route is None or route[0] is not topology:
+                return None
+            sids.append(route[1])
+        return np.concatenate(sids) if sids else None
+
+    def launch(self, rctx: RoutedContext, kind: str, aux: int,
+               keys: np.ndarray, routes=None, exec_cache=None,
+               take_host: Optional[Callable[[], Dict]] = None,
+               stream=None) -> _RoutedHandle:
+        """Scatter one admitted batch over its shard lanes; returns a
+        `_RoutedHandle` (completion is the handle's ``finalize``).
+
+        With ``exec_cache`` (the async path) each touched lane resolves
+        its executable through the cache and launches it with
+        `ShardedDispatcher.launch` on ``stream``, copying its outputs
+        into a pinned host set of its own from ``take_host()``; without
+        it (the sync path) each lane's callable runs on its placed
+        sub-batch.  Empty shards launch nothing.  If a lane fails to
+        launch, the lanes already launched are waited for before the
+        error propagates, so nothing they read is released under them.
+        """
+        keys = np.asarray(keys, dtype=np.uint64)
+        m = keys.size
+        topo = rctx.topology
+        instr = rctx.instrumented and kind != "scan"
+        # one lane layout for the whole batch: `set_replicas` may replace
+        # it meanwhile, and the context may predate it; the batch runs on
+        # the replicas both layouts hold
+        lanes = self.lanes
+        with maybe_span(self.recorder, "route", cat="serve",
+                        n_keys=int(m), n_shards=len(lanes)):
+            sid = routes if routes is not None else topo.route(keys)
+            order = np.argsort(sid, kind="stable")
+            counts = np.bincount(sid, minlength=len(lanes))
+            sorted_keys = keys[order]
+        subs, exes = [], []
+        padded = 0
+        start = 0
+        try:
+            for s in range(len(lanes)):
+                c = int(counts[s])
+                if c == 0:
+                    continue
+                sub = sorted_keys[start:start + c]
+                start += c
+                r = self._pick(s) % min(len(lanes[s]),
+                                        len(rctx.lane_ctxs[s]))
+                lane = lanes[s][r]
+                ctx = rctx.lane_ctxs[s][r]
+                make_fn = ((lambda c=ctx: c.read_fn) if kind != "scan"
+                           else (lambda c=ctx, a=aux: c.scan_fn(int(a))))
+                args = (c,) if instr else ()
+                if exec_cache is not None:
+                    p = lane.padded_size(c)
+                    exe = exec_cache.get(ctx, kind, aux, p, make_fn, lane)
+                    exes.append(exe)
+                    launched = lane.launch(exe, sub, args, host=take_host(),
+                                           instrumented=instr, stream=stream)
+                else:
+                    q, p = lane.pad_and_place(sub)
+                    launched = Launched(out=make_fn()(q, *args), m=c,
+                                        instrumented=instr)
+                padded += p
+                subs.append((s, launched))
+        except BaseException:
+            for _, launched in subs:
+                if launched.done is not None:
+                    launched.done.synchronize()
+            raise
+        return _RoutedHandle(subs, order, counts, padded, m, kind,
+                             instr, rctx, exes)
+
+    def __call__(self, rctx: RoutedContext, kind: str, aux: int,
+                 keys: np.ndarray, routes=None):
+        """Synchronous routed dispatch: launch then finalize."""
+        return self.launch(rctx, kind, aux, keys, routes=routes).finalize()

@@ -53,11 +53,17 @@ falls back to eager launches.  The kernel wrappers count
 a launch when it is captured, not when it is replayed, so the cache
 counts each graph's replays and the launches it captured.
 
-A port of the reference's `repro.serve.lookup.executor` for one device;
-its routed contexts wait for range-routed serving.
+Routed batches: a `RoutedContext` launches one graph replay per shard
+lane the batch touches (`dispatch.RoutedDispatcher.launch`), each into a
+pinned host set of its own, and rides the ring as one slot that keeps
+every lane's executable and the context (every shard generation and scan
+head) until it completes.
+
+A port of the reference's `repro.serve.lookup.executor`.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import queue
@@ -70,6 +76,7 @@ import torch
 
 from repro_torch.kernels.common import encode_keys
 from repro_torch.obs.trace import maybe_span
+from repro_torch.serve.lookup.dispatch import RoutedContext
 
 __all__ = ["AsyncContext", "AsyncExecutor", "ExecutableCache",
            "GraphExecutable", "GraphStats", "WorkItem",
@@ -119,9 +126,10 @@ class _Slot:
 
     group: List
     kind: str
-    out: Any = None              # dispatch.Launched
-    exe: Any = None              # the executable, kept alive until done
+    out: Any = None              # dispatch.Launched (_RoutedHandle if routed)
+    exe: Any = None              # the executable(s), kept alive until done
     ctx: Any = None              # the pinned context (its bind), likewise
+    hosts: List = dataclasses.field(default_factory=list)  # pinned sets
     m: int = 0                   # real key count (pre-padding)
     padded: int = 0
     host: Any = None             # host-ready result (inserts)
@@ -131,6 +139,7 @@ class _Slot:
     is_insert: bool = False
     version: int = -1            # generation the stats (if any) belong to
     instrumented: bool = False   # out is (payload, packed health stats)
+    routed: bool = False         # out is a dispatch._RoutedHandle
 
 
 _STOP = object()
@@ -450,11 +459,13 @@ class AsyncExecutor:
         self.stream = (torch.cuda.Stream(dev, priority=-1)
                        if dev.type == "cuda" else None)
         self._ring: "queue.Queue" = queue.Queue(maxsize=self.slots)
-        # the pinned host buffers of each slot: at most slots + 1 launches
-        # are outstanding when the next one launches (a full ring and one
-        # being completed), so slots + 2 sets are never reused early
-        self._host_bufs = [dict() for _ in range(self.slots + 2)]
-        self._n_launched = 0
+        # pinned host output sets (one dict of buffers each): a launch
+        # takes one per lane it launches on (one for a broadcast batch,
+        # one per touched shard for a routed one) and its slot gives them
+        # back when it completes, so no set is reused before the batch
+        # that wrote it was copied out.  deque pop/append are atomic: the
+        # dispatch thread takes, the completion thread gives back.
+        self._free_hosts: "collections.deque" = collections.deque()
         self._launch_mu = threading.Lock()   # serializes take+launch order
         self._inflight = 0
         self._inflight_cv = threading.Condition()
@@ -552,25 +563,43 @@ class AsyncExecutor:
         t0, c0 = time.perf_counter(), time.thread_time()
         ctx = item.ctx
         instr = False
+        routed = isinstance(ctx, RoutedContext)
+        hosts: List[Dict] = []
+
+        def take_host() -> Dict:
+            try:
+                host = self._free_hosts.pop()
+            except IndexError:
+                host = {}
+            hosts.append(host)
+            return host
+
         try:
-            if not isinstance(ctx, AsyncContext):
-                raise NotImplementedError(
-                    "routed contexts need range-routed serving "
-                    "(ROADMAP item 10)")
-            make_fn = ((lambda: ctx.read_fn) if item.kind == "read"
-                       else (lambda: ctx.scan_fn(item.aux)))
-            padded = svc.dispatcher.padded_size(keys.size)
-            exe = svc.exec_cache.get(ctx, item.kind, item.aux, padded,
-                                     make_fn, svc.dispatcher)
-            instr = ctx.instrumented and item.kind == "read"
-            args = ((keys.size,) if instr else ()) + tuple(ctx.bind)
-            host = self._host_bufs[self._n_launched % len(self._host_bufs)]
-            self._n_launched += 1
-            out = svc.dispatcher.launch(exe, keys, args, instrumented=instr,
-                                        stream=self.stream, host=host)
+            if routed:
+                routes = svc.dispatcher.routes_for(group, ctx.topology)
+                out = svc.dispatcher.launch(
+                    ctx, item.kind, item.aux, keys, routes=routes,
+                    exec_cache=svc.exec_cache, take_host=take_host,
+                    stream=self.stream)
+                exe, padded = out.exes, out.padded
+            elif not isinstance(ctx, AsyncContext):
+                raise TypeError(
+                    f"no dispatch path for a {type(ctx).__name__} context")
+            else:
+                make_fn = ((lambda: ctx.read_fn) if item.kind == "read"
+                           else (lambda: ctx.scan_fn(item.aux)))
+                padded = svc.dispatcher.padded_size(keys.size)
+                exe = svc.exec_cache.get(ctx, item.kind, item.aux, padded,
+                                         make_fn, svc.dispatcher)
+                instr = ctx.instrumented and item.kind == "read"
+                args = ((keys.size,) if instr else ()) + tuple(ctx.bind)
+                out = svc.dispatcher.launch(exe, keys, args,
+                                            instrumented=instr,
+                                            stream=self.stream,
+                                            host=take_host())
         except BaseException as e:       # noqa: BLE001 — fail the group only
             self._put(_Slot(group=group, kind=item.kind, error=e,
-                            ctx=ctx, t_submit_oldest=t_oldest,
+                            ctx=ctx, hosts=hosts, t_submit_oldest=t_oldest,
                             t_launch=t0))
             return
         rec = svc.recorder
@@ -584,9 +613,10 @@ class AsyncExecutor:
                     n_keys=int(keys.size), n_requests=len(group),
                     rid_first=group[0].rid, rid_last=group[-1].rid)
         self._put(_Slot(group=group, kind=item.kind, out=out, exe=exe,
-                        ctx=ctx, m=keys.size, padded=padded,
+                        ctx=ctx, hosts=hosts, m=keys.size, padded=padded,
                         t_submit_oldest=t_oldest, t_launch=t0,
-                        version=ctx.key[0], instrumented=instr))
+                        version=ctx.key[0], instrumented=instr,
+                        routed=routed))
 
     def _put(self, slot: _Slot) -> None:
         with self._inflight_cv:
@@ -618,13 +648,23 @@ class AsyncExecutor:
             else:
                 t_wait, c0 = time.perf_counter(), time.thread_time()
                 try:
-                    out = svc.dispatcher.complete(slot.out)
+                    if slot.routed:
+                        out, route_stats, _ = slot.out.finalize()
+                    else:
+                        out = svc.dispatcher.complete(slot.out)
                 except BaseException as e:   # noqa: BLE001 — device failure
                     for r in slot.group:     # fails the slot, not the loop
                         r.future._set_exception(e)
                     return
                 t_end, cpu_s = time.perf_counter(), time.thread_time() - c0
-                if slot.instrumented:
+                if slot.routed:
+                    # per-shard stats land in each SHARD generation's
+                    # health record; route skew feeds the metrics
+                    for ver, stats in route_stats:
+                        svc._note_health(ver, stats, t_end)
+                    svc.metrics.observe_route(slot.out.counts,
+                                              slot.out.padded)
+                elif slot.instrumented:
                     # route the device-reduced stats to the record of the
                     # generation the slot ran on
                     out, stats = out
@@ -655,9 +695,12 @@ class AsyncExecutor:
                     per_request=[(r.t_submit, r.keys.size, r.priority)
                                  for r in slot.group])
         finally:
-            # the device is done with the batch: its graph, generation
-            # and delta may go now
+            # the device is done with the batch: its graph(s),
+            # generation(s) and delta may go now, and its host sets serve
+            # the next launches
             slot.out = slot.exe = slot.ctx = None
+            self._free_hosts.extend(slot.hosts)
+            slot.hosts = []
             with self._inflight_cv:
                 self._inflight -= 1
                 self._inflight_cv.notify_all()

@@ -14,26 +14,29 @@ Rebuilds (`build_and_publish`) run entirely outside the lock: index
 construction is seconds of host numpy and device verification, and must
 never stall admission or dispatch.
 
-A port of the reference's `repro.serve.lookup.registry` for broadcast
-generations on one device; its routed generation sets wait for
-range-routed serving.
+A `RoutedGeneration` is one published SET of per-shard generations plus
+the `ShardTopology` that routes into them, swapped in as one unit.
+
+A port of the reference's `repro.serve.lookup.registry`.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import base
 from repro_torch.core import spec as spec_mod
-from repro_torch.core.plan import LookupPlan
+from repro_torch.core.plan import LookupPlan, _window_gather
 from repro_torch.kernels.common import (decode_keys, encode_keys,
                                         resolve_device)
 from repro_torch.obs.trace import maybe_span
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.dispatch import make_plan
+from repro_torch.serve.lookup.topology import ShardTopology
 
 DEFAULT_NAME = "default"
 
@@ -54,6 +57,9 @@ class Generation:
     spec: Optional[spec_mod.IndexSpec] = None
     #: One of its keys (uint64), for the executor's warm-up batches.
     sample_key: int = 1
+    #: Shard index inside a `RoutedGeneration` (None for broadcast
+    #: generations), threaded into per-shard health records.
+    shard: Optional[int] = None
 
     def scan_fn(self, m: int) -> Callable:
         """Plan-compiled scan (positions + m-record window), cached on
@@ -77,6 +83,91 @@ class Generation:
         """Instrumented merged-view lookup ``(q, n_valid, delta) ->
         (merged LB, base-plan health stats)`` for the mutable service."""
         return self.plan.compile_instrumented_merged(backend=self.backend)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RoutedGeneration:
+    """One published *set* of per-shard generations plus the topology
+    that routes into them.
+
+    Swaps atomically as a unit: the registry pointer flips to the whole
+    RoutedGeneration, so a pinned batch observes one consistent
+    (topology, shard builds) pair even while a re-publish is in flight.
+    Shard ``s`` serves keys in ``(split[s-1], split[s]]`` with its own
+    (smaller, possibly separately tuned) plan; the routed global rank is
+    ``topology.offsets[s] + LB_local``.
+    """
+
+    version: int
+    topology: ShardTopology
+    shards: Tuple[Generation, ...]
+    spec: Optional[spec_mod.IndexSpec] = None
+    backend: str = "torch"
+    _scan_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_keys(self) -> int:
+        return self.topology.n_keys
+
+    @property
+    def shard_versions(self) -> Tuple[int, ...]:
+        return tuple(s.version for s in self.shards)
+
+    @property
+    def plan(self) -> LookupPlan:
+        """First shard's plan: a shape/name probe only; never dispatch
+        through it directly (it covers one key range)."""
+        return self.shards[0].plan
+
+    @property
+    def point_only(self) -> bool:
+        return any(s.plan.point_only for s in self.shards)
+
+    @property
+    def max_err(self) -> int:
+        return max(s.plan.bounds.max_err for s in self.shards)
+
+    @property
+    def max_scan_len(self) -> int:
+        """Largest exact routed scan width: a shard-s window is repaired
+        with the first ``m`` records of shard s+1, which only covers the
+        spill when every shard holds at least ``m`` keys."""
+        return self.topology.min_shard_len
+
+    def shard_scan_fn(self, s: int, m: int) -> Callable:
+        """Scan for shard ``s``: the shard-local window merged with the
+        head of shard ``s+1``.  All shard-s records sort strictly below
+        all shard-(s+1) records (boundaries are snapped to duplicate
+        runs), so the first ``m`` of the sorted union is exactly the
+        global window, the same argument as the delta merged scan.  The
+        sort runs on encoded keys, where the window's past-the-end pad
+        (``INT64_MAX``, the code of ``UINT64_MAX``) sorts last; decoding
+        happens at completion.  Tagged with the shard's plan, so the
+        executor captures it as a CUDA graph like the plan's own scan."""
+        key = (int(s), int(m))
+        fn = self._scan_cache.get(key)
+        if fn is not None:
+            return fn
+        gen = self.shards[s]
+        if s == len(self.shards) - 1:
+            fn = gen.scan_fn(m)          # the pad is global here
+        else:
+            run = gen.plan.compile(backend=gen.backend)
+            data = gen.plan.data
+            head = self.shards[s + 1].data[:m]
+
+            def scan(q):
+                pos = run(q)
+                wb = _window_gather(data, pos, m)
+                spill = head[None, :].expand(q.shape[0], m)
+                merged = torch.sort(torch.cat([wb, spill], dim=1),
+                                    dim=1).values[:, :m]
+                return pos, merged
+
+            scan.lookup_plan = gen.plan
+            fn = scan
+        self._scan_cache[key] = fn
+        return fn
 
 
 class IndexRegistry:
@@ -150,11 +241,13 @@ class IndexRegistry:
     def make_generation(self, build: base.IndexBuild, data,
                         last_mile: Optional[str] = None,
                         backend: str = "torch",
-                        spec: Optional[spec_mod.IndexSpec] = None
-                        ) -> Generation:
-        """Lower a build to a versioned Generation WITHOUT publishing it.
-        Compiling the lookup here prepares whatever the backend derives
-        from the plan (RMI's fused f32 state), before the swap."""
+                        spec: Optional[spec_mod.IndexSpec] = None,
+                        shard: Optional[int] = None) -> Generation:
+        """Lower a build to a versioned Generation WITHOUT publishing it
+        (the routed publish path assembles several of these and swaps
+        them in as one unit).  Compiling the lookup here prepares
+        whatever the backend derives from the plan (RMI's fused f32
+        state), before the swap."""
         plan = make_plan(build, data, last_mile=last_mile)
         if spec is None:
             spec = build.meta.get("spec")
@@ -173,7 +266,82 @@ class IndexRegistry:
             spec=spec,
             sample_key=(int(decode_keys(data[:1])[0]) if data.shape[0]
                         else 1),
+            shard=shard,
         )
+
+    def publish_routed(self, shard_gens, topology: ShardTopology,
+                       name: str = DEFAULT_NAME,
+                       spec: Optional[spec_mod.IndexSpec] = None,
+                       backend: str = "torch") -> RoutedGeneration:
+        """Swap a complete shard set in as one RoutedGeneration.  Shard
+        generations made by another registry keep their versions; this
+        registry's later versions stay above them."""
+        for g in shard_gens:
+            self._versions.advance_past(g.version)
+        rgen = RoutedGeneration(
+            version=self._versions.next(),
+            topology=topology,
+            shards=tuple(shard_gens),
+            spec=spec,
+            backend=backend,
+        )
+        with self._lock:
+            self._current[name] = rgen
+            subscribers = list(self._subscribers)
+        if self.health is not None:
+            self.health.on_publish_group(rgen.shards)
+        if self.recorder is not None:
+            self.recorder.instant(
+                "publish", cat="lifecycle", reg_name=name,
+                version=rgen.version, index=rgen.plan.name,
+                n_keys=rgen.n_keys, n_shards=topology.n_shards)
+        for cb in subscribers:
+            cb(name, rgen)
+        return rgen
+
+    def build_and_publish_routed(self, index, keys: np.ndarray,
+                                 topology: ShardTopology,
+                                 hyper: Optional[Dict[str, Any]] = None,
+                                 name: str = DEFAULT_NAME,
+                                 last_mile: Optional[str] = None,
+                                 backend: Optional[str] = None,
+                                 tuner: Optional[spec_mod.Tuner] = None
+                                 ) -> RoutedGeneration:
+        """Build one generation per topology range and swap the set in.
+
+        With a ``tuner``, each shard's spec is searched against ONLY its
+        slice (per-shard byte budget = total / shards); without one,
+        every shard reuses the coerced spec: smaller slices still give
+        tighter error bounds for the same hyperparameters.  Each shard's
+        bounds are verified by its own build on this registry's device.
+        """
+        sp = spec_mod.coerce(index, hyper, backend=backend,
+                             last_mile=last_mile)
+        keys = np.asarray(keys, dtype=np.uint64)
+        offs = topology.offsets
+        shard_specs = [sp] * topology.n_shards
+        builds = [None] * topology.n_shards
+        if tuner is not None:
+            results = tuner.tune_shards(keys, offs, device=self.device)
+            shard_specs = [r.spec for r in results]
+            builds = [r.build for r in results]
+        gens = []
+        with maybe_span(self.recorder, "index_build", cat="lifecycle",
+                        reg_name=name, index=sp.index,
+                        n_keys=int(keys.size),
+                        n_shards=topology.n_shards):
+            for s in range(topology.n_shards):
+                sl = keys[offs[s]:offs[s + 1]]
+                b = builds[s] if builds[s] is not None \
+                    else spec_mod.build(shard_specs[s], sl,
+                                        device=self.device)
+                gens.append(self.make_generation(
+                    b, encode_keys(sl, self.device),
+                    last_mile=shard_specs[s].last_mile,
+                    backend=shard_specs[s].backend,
+                    spec=shard_specs[s], shard=s))
+        return self.publish_routed(gens, topology, name=name, spec=sp,
+                                   backend=sp.backend)
 
     def build_and_publish(self, index, keys: np.ndarray,
                           hyper: Optional[Dict[str, Any]] = None,

@@ -23,9 +23,14 @@ against.  ``executor="async"`` swaps in the continuous-batching engine
 own stream without waiting, and a bounded ring of in-flight slots
 completed in FIFO order.
 
-The reference's service on one device.  Options whose modules are later
-ports raise `NotImplementedError` naming the ROADMAP item: range-routed
-shards (item 10) and autotune (item 11).
+Range routing: ``shards > 1`` (or an explicit ``topology``) partitions
+the key space into contiguous ranges, each with its own generation, and
+dispatch scatters a batch over the shard lanes and gathers it back in
+admission order (`dispatch.RoutedDispatcher`); on one card every lane
+runs on it.  ``autotune`` attaches the shadow retuner
+(`repro_torch.autotune`).
+
+The reference's service, on one device.
 """
 from __future__ import annotations
 
@@ -42,12 +47,16 @@ from repro_torch.obs.health import HealthMonitor
 from repro_torch.obs.trace import SpanRecorder, maybe_span
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.admission import LookupFuture, MicroBatcher
-from repro_torch.serve.lookup.dispatch import PAD_QUANTUM, ShardedDispatcher
+from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM, RoutedContext,
+                                               RoutedDispatcher,
+                                               ShardedDispatcher)
 from repro_torch.serve.lookup.executor import (AsyncContext, AsyncExecutor,
                                                ExecutableCache, WorkItem)
 from repro_torch.serve.lookup.metrics import ServiceMetrics
 from repro_torch.serve.lookup.registry import (DEFAULT_NAME, Generation,
-                                               IndexRegistry)
+                                               IndexRegistry,
+                                               RoutedGeneration)
+from repro_torch.serve.lookup.topology import ShardTopology
 
 
 #: The serving-default hyperparameters (the reference's).
@@ -114,17 +123,29 @@ class LookupServiceConfig:
     #: Alert rules over `health_snapshot()` keys; None -> the shipped
     #: `default_rules()`, () -> no rules.
     alert_rules: Optional[Tuple[AlertRule, ...]] = None
-    #: Range-routed serving (``shards > 1``, ``replicas > 1``,
-    #: ``topology``, per-shard tuning): ROADMAP item 10.
+    #: Range-routed serving topology.  ``shards > 1`` partitions the key
+    #: space into that many equal-count ranges, each with its own
+    #: (smaller) index generation, and replaces broadcast dispatch with
+    #: scatter/gather routing.  ``topology`` pins an explicit
+    #: `ShardTopology` instead (wins over ``shards``/``replicas``, and
+    #: forces the routed path even with one shard).
     shards: int = 1
-    replicas: int = 1
-    topology: Optional[Any] = None
+    replicas: int = 1                       # read fan-out per shard
+    topology: Optional[ShardTopology] = None
+    #: Per-shard spec search: each shard's `IndexSpec` tuned against
+    #: ONLY its slice (per-shard byte budget = Tuner.max_bytes / shards).
+    #: None -> every shard reuses the service's resolved spec.
     shard_tuner: Optional[spec_mod.Tuner] = None
     #: Query-buffer donation, read by the reference's async and routed
     #: paths only.  Torch has no buffer donation, so this field has no
     #: effect on any path of the port.
     donate_queries: Optional[bool] = None
-    #: Self-driving tuning: ROADMAP item 11.
+    #: Self-driving tuning: a `repro_torch.autotune.AutotuneConfig`
+    #: attaches a `ShadowRetuner` to this service (alert-triggered,
+    #: workload-aware retunes, oracle-verified hot swaps,
+    #: `/autotune.json`).  With ``autotune.daemon`` the retuner thread
+    #: starts and stops with the service; otherwise drive it through
+    #: ``service.autotune.poll_once()``.
     autotune: Optional[Any] = None
 
     def resolved_spec(self) -> spec_mod.IndexSpec:
@@ -136,20 +157,16 @@ class LookupServiceConfig:
                                last_mile=self.last_mile)
 
 
-def _refuse_later_items(cfg: LookupServiceConfig) -> None:
-    """Options whose modules are not ported yet fail loudly, never
-    silently."""
+def _validate(cfg: LookupServiceConfig) -> None:
+    """Refuse an unknown executor, and shard or replica counts below one
+    (with the messages `ShardTopology.from_keys` raises for them)."""
     if cfg.executor not in ("sync", "async"):
         raise ValueError(
             f"executor must be 'sync' or 'async', got {cfg.executor!r}")
-    if cfg.shards > 1 or cfg.replicas != 1 or cfg.topology is not None \
-            or cfg.shard_tuner is not None:
-        raise NotImplementedError(
-            "shards > 1, replicas, topology and shard_tuner need "
-            "range-routed serving (ROADMAP item 10)")
-    if cfg.autotune is not None:
-        raise NotImplementedError("autotune needs the autotune port "
-                                  "(ROADMAP item 11)")
+    if cfg.shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {cfg.shards}")
+    if cfg.replicas < 1:
+        raise ValueError("every shard needs at least one replica")
 
 
 class LookupService:
@@ -159,11 +176,11 @@ class LookupService:
                  prebuilt: Optional[Generation] = None):
         """Serve lookups over ``keys`` on ``device`` (None: the CUDA
         card).  ``prebuilt``, a `Generation` over ``keys`` made by
-        `IndexRegistry.make_generation` (or served by another service on
-        the same device), is published as the first generation instead
-        of building one."""
+        `IndexRegistry.make_generation` or a `RoutedGeneration` (either
+        one served by another service on the same device), is published
+        as the first generation instead of building one."""
         self.cfg = config if config is not None else LookupServiceConfig()
-        _refuse_later_items(self.cfg)
+        _validate(self.cfg)
         #: span recorder, or None when tracing is off: every
         #: instrumentation site on the serve path shares this one object
         self.recorder = (SpanRecorder(self.cfg.trace_capacity)
@@ -172,8 +189,12 @@ class LookupService:
         self.registry.recorder = self.recorder
         #: per-generation health monitor, or None when disabled: attached
         #: BEFORE the first publish so the first generation has a record
+        shards_hint = (self.cfg.topology.n_shards
+                       if self.cfg.topology is not None
+                       else self.cfg.shards)
         self.health = (HealthMonitor(slot_s=self.cfg.window_slot_s,
-                                     n_slots=self.cfg.window_slots)
+                                     n_slots=self.cfg.window_slots,
+                                     keep=max(8, 2 * (shards_hint + 1)))
                        if self.cfg.health else None)
         self.registry.health = self.health
         #: alert engine: always present (rules may be empty); evaluates
@@ -206,22 +227,57 @@ class LookupService:
                                           recorder=self.recorder)
         self._async = (AsyncExecutor(self, slots=self.cfg.slots)
                        if self.cfg.executor == "async" else None)
-        # every publish lands here (async only: invalidation on swap), so
+        # routed contexts, keyed on (generation version, lane epoch,
+        # instrumented)
+        self._rctx_cache: Dict[Tuple, RoutedContext] = {}
+        # every publish lands here: routed topology and router updates
+        # for both executors, plus (async only) invalidation on swap, so
         # compaction rebuilds, which publish without swap_keys, evict
         # stale executables too
         self.registry.subscribe(self._on_publish)
         if prebuilt is None:
             self.swap_keys(keys)
+        elif isinstance(prebuilt, RoutedGeneration):
+            self.registry.publish_routed(
+                prebuilt.shards, prebuilt.topology, spec=prebuilt.spec,
+                backend=prebuilt.backend)
         else:
             self.registry.publish_prebuilt(prebuilt)
+        #: shadow retuner, or None: made AFTER the first publish so its
+        #: trigger polls always see a live generation
+        if self.cfg.autotune is not None:
+            from repro_torch.autotune import ShadowRetuner
+            self.autotune = ShadowRetuner(self, self.cfg.autotune)
+        else:
+            self.autotune = None
 
     # -- index lifecycle -------------------------------------------------
+    def _resolve_topology(self, keys) -> Optional[ShardTopology]:
+        """The serving topology for one key set, or None for broadcast.
+        An explicit ``cfg.topology`` always routes (even single-shard:
+        that is the degeneration-parity path); ``shards > 1`` builds an
+        equal-count partition fresh per key set."""
+        if self.cfg.topology is not None:
+            return self.cfg.topology
+        if self.cfg.shards > 1:
+            return ShardTopology.from_keys(keys, self.cfg.shards,
+                                           self.cfg.replicas)
+        return None
+
     def swap_keys(self, keys: np.ndarray) -> Generation:
         """Rebuild on a fresh key set and hot-swap it in (no draining).
         Builds go through the config's resolved `IndexSpec`, so the
-        published generation is spec-addressable (`Generation.spec`)."""
-        return self.registry.build_and_publish(
-            self.cfg.resolved_spec(), np.asarray(keys, dtype=np.uint64))
+        published generation is spec-addressable (`Generation.spec`).
+        With a routed topology this publishes one generation per range
+        plus the topology, as a single atomic `RoutedGeneration`."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        topo = self._resolve_topology(keys)
+        if topo is None:
+            return self.registry.build_and_publish(
+                self.cfg.resolved_spec(), keys)
+        return self.registry.build_and_publish_routed(
+            self.cfg.resolved_spec(), keys, topo,
+            tuner=self.cfg.shard_tuner)
 
     @property
     def generation(self) -> Generation:
@@ -245,14 +301,19 @@ class LookupService:
         records from ``LB(keys[i])`` as uint64 (``UINT64_MAX`` past the
         end)."""
         # the window is a [B, length] gather, so the client-supplied
-        # length is bounded
+        # length is bounded; a routed topology tightens the bound to the
+        # smallest shard (a shard's spill window only repairs up to
+        # min_shard_len records)
         gen = self.generation
         max_len = self.cfg.max_scan_length
+        routed = isinstance(gen, RoutedGeneration)
+        if routed:
+            max_len = min(max_len, gen.max_scan_len)
         if not 1 <= length <= max_len:
             raise ValueError(f"scan length must be in [1, {max_len}]")
         # reject point-only indexes at admission; the per-group guard in
         # _complete_run still covers a hot-swap to a point-only index
-        if gen.plan.point_only:
+        if gen.point_only if routed else gen.plan.point_only:
             raise ValueError(
                 f"index {gen.plan.name!r} is point-only: no scans")
         _, fut = self.batcher.submit(keys, kind="scan", aux=int(length),
@@ -303,6 +364,14 @@ class LookupService:
         """Route one same-kind run; subclasses add kinds (inserts)."""
         if ctx is None:
             ctx = self._pin_context()
+        if isinstance(ctx, RoutedContext):
+            if kind == "scan":
+                for group in self._runs(run, key=lambda r: r.aux):
+                    self._complete_routed("scan", list(group),
+                                          int(group[0].aux), ctx)
+            else:
+                self._complete_routed("read", list(run), 0, ctx)
+            return
         lookup_fn, scan_for, version = ctx
         if kind == "scan":
             self._dispatch_scans(run, scan_for)
@@ -313,11 +382,72 @@ class LookupService:
         """``(lookup_fn, m -> scan callable, version)`` bound to ONE
         immutable generation.  With health on, ``lookup_fn`` is the
         plan's INSTRUMENTED lookup; ``version`` routes its stats to the
-        right record."""
+        right record.  Routed generations pin a `RoutedContext` instead
+        (the topology and every lane's callables)."""
         gen = self.registry.current()
+        if isinstance(gen, RoutedGeneration):
+            return self._routed_context(gen)
         if self.health is not None:
             return gen.instrumented_fn(), gen.scan_fn, gen.version
         return gen.fn, gen.scan_fn, gen.version
+
+    def _routed_context(self, gen: RoutedGeneration) -> RoutedContext:
+        """One executable-cache-addressable context per (generation,
+        lane layout): every (shard, replica) lane gets its own
+        `AsyncContext` keyed ``(shard version, replica)``, so each lane
+        has its own graphs."""
+        instrumented = self.health is not None
+        key = (gen.version, self.dispatcher.lanes_epoch, instrumented)
+        rctx = self._rctx_cache.get(key)
+        if rctx is not None:
+            return rctx
+        lane_ctxs = []
+        for s, sgen in enumerate(gen.shards):
+            read_fn = sgen.instrumented_fn() if instrumented else sgen.fn
+            scan_fn = (lambda m, s=s, g=gen: g.shard_scan_fn(s, int(m)))
+            lane_ctxs.append(tuple(
+                AsyncContext(key=(sgen.version, r), read_fn=read_fn,
+                             scan_fn=scan_fn, bind=(),
+                             sample_key=sgen.sample_key,
+                             instrumented=instrumented)
+                for r in range(len(self.dispatcher.lanes[s]))))
+        rctx = RoutedContext(
+            topology=gen.topology,
+            lane_ctxs=tuple(lane_ctxs),
+            offsets=tuple(gen.topology.offsets),
+            versions=gen.shard_versions,
+            version=gen.version,
+            instrumented=instrumented)
+        self._rctx_cache[key] = rctx
+        return rctx
+
+    def _complete_routed(self, kind: str, group, aux: int,
+                         rctx: RoutedContext) -> None:
+        """Synchronous routed dispatch of one same-(kind, aux) group:
+        scatter over shard lanes, finalize (gather in admission order),
+        complete futures: the routed twin of `_complete_run`."""
+        keys = (group[0].keys if len(group) == 1
+                else np.concatenate([r.keys for r in group]))
+        t0 = time.perf_counter()
+        try:
+            routes = self.dispatcher.routes_for(group, rctx.topology)
+            handle = self.dispatcher.launch(rctx, kind, aux, keys,
+                                            routes=routes)
+            out, stats, padded = handle.finalize()
+        except BaseException as e:  # noqa: BLE001 — fail the group only
+            for r in group:
+                r.future._set_exception(e)
+            return
+        t1 = time.perf_counter()
+        if self.recorder is not None:
+            # the broadcast path's "device" span: launch to answers
+            self.recorder.add("device", t0, t1, cat="serve",
+                              padded=int(padded),
+                              n_shards=self.dispatcher.n_shards)
+        for ver, st in stats:
+            self._note_health(ver, st, t1)
+        self.metrics.observe_route(handle.counts, padded)
+        self._finish_group(group, out, t0, t1, keys.size, padded)
 
     def _complete_run(self, group, make_fn, version: int = -1,
                       instrumented: bool = False) -> None:
@@ -385,8 +515,11 @@ class LookupService:
     def _async_context(self) -> AsyncContext:
         """Pin one generation as an executable-cache-addressable context:
         the async analogue of `_pin_context` (a hot swap lands between
-        batches, never inside one)."""
+        batches, never inside one).  Routed generations return the
+        (cached) `RoutedContext`; the executor branches on the type."""
         gen = self.registry.current()
+        if isinstance(gen, RoutedGeneration):
+            return self._routed_context(gen)
         instrumented = self.health is not None
         return AsyncContext(
             key=(gen.version,),
@@ -418,8 +551,8 @@ class LookupService:
         raise NotImplementedError(
             "insert completion on a read-only service")
 
-    def _resolved_warm_buckets(self):
-        d = self.dispatcher
+    def _resolved_warm_buckets(self, dispatcher=None):
+        d = self.dispatcher if dispatcher is None else dispatcher
         if self.cfg.warm_buckets:
             return tuple(sorted({d.padded_size(int(b))
                                  for b in self.cfg.warm_buckets}))
@@ -441,6 +574,8 @@ class LookupService:
         if self._async is None:
             return 0
         ctx = self._async_context()
+        if isinstance(ctx, RoutedContext):
+            return self._warm_routed(ctx)
         buckets = self._resolved_warm_buckets()
         with maybe_span(self.recorder, "warmup", cat="lifecycle",
                         version=ctx.key[0], n_buckets=len(buckets)):
@@ -455,13 +590,50 @@ class LookupService:
         if w is not None and w.is_alive():
             w.join(timeout)
 
+    def _warm_routed(self, rctx: RoutedContext) -> int:
+        """Build every (shard, replica) lane's executables on that lane's
+        own dispatcher: each lane has its own graphs."""
+        n = 0
+        with maybe_span(self.recorder, "warmup", cat="lifecycle",
+                        version=rctx.version,
+                        n_shards=self.dispatcher.n_shards):
+            for s, grp in enumerate(self.dispatcher.lanes):
+                for r, lane in enumerate(grp):
+                    n += self.exec_cache.warmup(
+                        rctx.lane_ctxs[s][r],
+                        self._resolved_warm_buckets(lane), lane,
+                        scan_lengths=self.cfg.warm_scan_lengths)
+        return n
+
     def _on_publish(self, name: str, gen) -> None:
-        """Registry publish hook (async only): evict stale generations'
-        executables and re-warm the new one WITHOUT blocking the publisher
-        (a compaction thread may be mid-swap holding its own locks)."""
-        if name != DEFAULT_NAME or self._async is None:
+        """Registry publish hook: track the routed topology (both
+        executors route at admission through it), then (async only)
+        evict stale generations' executables and re-warm the new one
+        WITHOUT blocking the publisher (a compaction thread may be
+        mid-swap holding its own locks)."""
+        if name != DEFAULT_NAME:
             return
-        self.exec_cache.invalidate(keep_version=gen.version)
+        if isinstance(gen, RoutedGeneration):
+            if not isinstance(self.dispatcher, RoutedDispatcher):
+                self.dispatcher = RoutedDispatcher(
+                    gen.topology, devices=[self.registry.device],
+                    pad_quantum=self.cfg.pad_quantum,
+                    recorder=self.recorder)
+            else:
+                self.dispatcher.set_replicas(gen.topology)
+            self._rctx_cache.clear()
+            # admission-time routing: each submit tags its request with
+            # (topology, shard ids); a later hot swap invalidates the tag
+            # by object identity and dispatch re-routes
+            self.batcher.router = (
+                lambda keys, t=gen.topology: (t, t.route(keys)))
+            keep = (gen.version,) + gen.shard_versions
+        else:
+            self.batcher.router = None
+            keep = gen.version
+        if self._async is None:
+            return
+        self.exec_cache.invalidate(keep_version=keep)
         if self._thread is None:
             # not serving: start() warms synchronously before the first
             # dispatch
@@ -470,6 +642,30 @@ class LookupService:
                              name="lookup-warmer", daemon=True)
         self._warm_thread = t
         t.start()
+
+    def rebalance_replicas(self, total_replicas: Optional[int] = None,
+                           window_s: float = 10.0) -> Tuple[int, ...]:
+        """Re-apportion replica seats to the shards that actually take
+        the traffic (each shard's health-record traffic window): the
+        hottest range gets the replicas.  Only the read fan-out changes;
+        split points and offsets stay, so admission-time routes remain
+        valid.  Returns the new per-shard replica counts."""
+        gen = self.registry.current()
+        if not isinstance(gen, RoutedGeneration):
+            raise ValueError("rebalance_replicas needs a routed topology")
+        masses = []
+        for sgen in gen.shards:
+            mass = 0.0
+            if self.health is not None:
+                rec = self.health.get(sgen.version)
+                if rec is not None:
+                    mass = float(np.sum(rec.traffic_window(window_s)))
+            masses.append(mass)
+        topo = gen.topology.rebalanced_from_masses(
+            masses, total_replicas=total_replicas)
+        if self.dispatcher.set_replicas(topo):
+            self._rctx_cache.clear()
+        return topo.replicas
 
     def _warm_retry(self) -> None:
         """Warm the current context, tolerating construction windows (the
@@ -511,6 +707,12 @@ class LookupService:
             snap.get("mean_inflight_slots", 0.0) / self.cfg.slots
             if self._async is not None and self.cfg.slots else 0.0)
         snap["serving"] = 1.0 if self._thread is not None else 0.0
+        if self.autotune is not None:
+            st = self.autotune.status()
+            snap["autotune_alive"] = 1.0 if st.get("alive") else 0.0
+            snap["autotune_triggered"] = float(st.get("n_triggered", 0))
+            snap["autotune_swapped"] = float(st.get("n_swapped", 0))
+            snap["autotune_rejected"] = float(st.get("n_rejected", 0))
         return snap
 
     def check_alerts(self, window_s: float = 10.0) -> list:
@@ -559,6 +761,7 @@ class LookupService:
             # dispatch then never captures a graph
             self.warm_now()
             self._thread = self._async.start()
+            self._start_autotune()
             return self
         self._stop.clear()
 
@@ -572,7 +775,16 @@ class LookupService:
         self._thread = threading.Thread(
             target=_loop, name="lookup-flusher", daemon=True)
         self._thread.start()
+        self._start_autotune()
         return self
+
+    def _start_autotune(self) -> None:
+        """Start the shadow-retuner daemon alongside the flusher (only
+        when the config asked for one; `poll_once` stays available for
+        explicit retunes either way)."""
+        at = self.autotune
+        if at is not None and at.cfg.daemon:
+            at.start()
 
     def stop(self) -> None:
         """Stop the background flusher, completing everything admitted so
@@ -580,6 +792,8 @@ class LookupService:
         or a later start())."""
         if self._thread is None:
             return
+        if self.autotune is not None:
+            self.autotune.stop()   # no retunes against a draining service
         if self._async is not None:
             self._async.stop()
             self._thread = None

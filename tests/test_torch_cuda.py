@@ -654,3 +654,144 @@ def test_mutable_service_across_a_compaction_on_the_card(card, executor):
         np.testing.assert_array_equal(got_win[i], want_win[i])
     assert svc.metrics.snapshot()["compactions"] >= 1
     assert svc.last_compaction_error is None
+
+
+@pytest.mark.parametrize("index", ["rmi", "pgm"])
+@pytest.mark.parametrize("executor", ["sync", "async"])
+def test_routed_equals_broadcast_on_the_card(card, executor, index):
+    """Routed over 4 shards on the card (every lane on it): reads and
+    scans equal broadcast and `np.searchsorted`; each dispatch launches
+    the path's kernel once per lane it touched (sync) or replays one
+    graph per touched lane (async)."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    keys = sosd.generate("amzn", 400_000, seed=3)
+    q = sosd.make_queries(keys, 20_000, seed=4)
+    kw = dict(spec=default_spec(index, backend="cuda"), max_batch=2048,
+              executor=executor, warm_scan_lengths=(16,))
+    bcast = LookupService(keys, LookupServiceConfig(**kw), device=card)
+    routed = LookupService(keys, LookupServiceConfig(shards=4, **kw),
+                           device=card)
+    results = {}
+    for svc in (bcast, routed):
+        with svc:
+            before = _counts()
+            futs = [svc.submit(q[i:i + 500]) for i in range(0, 10_000, 500)]
+            futs += [svc.scan(q[i:i + 100], 16)
+                     for i in range(10_000, 12_000, 100)]
+            results[svc] = [f.result(60) for f in futs]
+            launched = [a - b for a, b in zip(_counts(), before)]
+    for a, b in zip(results[routed], results[bcast]):
+        if isinstance(a, tuple):
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+        else:
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.concatenate(results[routed][:20]),
+                                  np.searchsorted(keys, q[:10_000]))
+    touched = sum(r["batches"] for r in routed.metrics.per_shard())
+    assert touched > routed.metrics.snapshot()["batches"]
+    if executor == "sync":
+        kernel = 0 if index == "rmi" else 2
+        assert launched == [touched if i == kernel else 0 for i in range(3)]
+    else:
+        assert launched == [0, 0, 0]          # every graph was warm
+        assert routed.exec_cache.graph_stats()["graph_replays"] == touched
+        assert routed.metrics.snapshot()["cache_misses"] == 0
+
+
+def test_a_stalled_routed_batch_keeps_every_lane_and_the_scan_head(card):
+    """A routed read and a scan whose windows cross the shard boundary,
+    launched on routed generation v1 behind ~0.5 s of device sleep; a
+    routed v2 over other keys published meanwhile, no other reference to
+    v1 left, then a garbage collection and device memory allocated and
+    written: every shard of v1 (and with shard 1 the head shard 0's
+    scans merge) stays alive until the slots complete, and both batches
+    answer from v1."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          ShardTopology, default_spec)
+
+    keys = sosd.generate("osm", 300_000, seed=1)
+    other = sosd.generate("wiki", 300_000, seed=2)
+    sp = default_spec("rmi", backend="cuda")
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=sp, executor="async", shards=2, warm_buckets=(128, 2048),
+        warm_scan_lengths=(16,)), device=card)
+    topo2 = ShardTopology.from_keys(other, 2)
+    v2 = [svc.registry.make_generation(
+        spec.build(sp, other[a:b], device=card),
+        encode_keys(other[a:b], card), backend="cuda", spec=sp, shard=s)
+        for s, (a, b) in enumerate(zip(topo2.offsets, topo2.offsets[1:]))]
+    svc.warm_now()
+    topo = svc.generation.topology
+    shard_data = [weakref.ref(g.data) for g in svc.generation.shards]
+    ex = svc._async
+    q = sosd.make_queries(keys, 3000, seed=5)
+    edge = topo.offsets[1]
+    anchors = keys[edge - 40:edge + 40:2]
+    with torch.cuda.stream(ex.stream):
+        torch.cuda._sleep(1_000_000_000)
+    fut = svc.submit(q)
+    fscan = svc.scan(anchors, 16)
+    ex._drain_launches()                 # launched, not completed
+    svc.registry.publish_routed(v2, topo2, spec=sp, backend="cuda")
+    del v2
+    gc.collect()
+    assert all(r() is not None for r in shard_data)
+    junk = _scribble(card)
+    ex._complete_ring_inline()
+    np.testing.assert_array_equal(fut.result(0), np.searchsorted(keys, q))
+    pos, win = fscan.result(0)
+    lb = np.searchsorted(keys, anchors)
+    np.testing.assert_array_equal(pos, lb)
+    np.testing.assert_array_equal(win, keys[lb[:, None] + np.arange(16)])
+    assert svc.lookup(q[:100]).tolist() == \
+        np.searchsorted(other, q[:100]).tolist()
+    del junk
+
+
+def test_a_full_routed_ring_stays_exact_with_a_host_set_per_lane(card,
+                                                                monkeypatch):
+    """24 routed batches of one size over 4 shards (slots=2), each
+    launched behind ~0.5 ms of device sleep while completion is held
+    back 10 ms a slot, so launches run a full ring ahead: every lane of
+    a batch copies into a pinned host set of its own, none reused before
+    its slot completes, and each batch answers for its own keys."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+    from repro_torch.serve.lookup import dispatch
+
+    keys = sosd.generate("osm", 300_000, seed=1)
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=default_spec("rmi", backend="cuda"), executor="async",
+        slots=2, max_batch=4096, shards=4, warm_buckets=(1024, 2048)),
+        device=card)
+    ex = svc._async
+    launch = svc.dispatcher.launch
+    finalize = dispatch._RoutedHandle.finalize
+
+    def launch_behind_sleep(*args, **kwargs):
+        with torch.cuda.stream(ex.stream):
+            torch.cuda._sleep(1_000_000)
+        return launch(*args, **kwargs)
+
+    def finalize_late(handle):
+        time.sleep(0.01)
+        return finalize(handle)
+
+    svc.dispatcher.launch = launch_behind_sleep
+    monkeypatch.setattr(dispatch._RoutedHandle, "finalize", finalize_late)
+    qs = [sosd.make_queries(keys, 4096 - 7 * i, seed=i) for i in range(24)]
+    with svc:
+        futs = [svc.submit(q) for q in qs]
+        got = [f.result(60) for f in futs]
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(g, np.searchsorted(keys, q))
+    snap = svc.metrics.snapshot()
+    assert snap["max_inflight_slots"] >= 2
+    touched = sum(r["batches"] for r in svc.metrics.per_shard())
+    assert touched == 24 * 4
+    assert svc.exec_cache.graph_stats()["graph_replays"] == touched
+    # sets in use at once: a full ring, one completing, one launching
+    assert 4 <= len(ex._free_hosts) <= (2 + 2) * 4

@@ -446,16 +446,24 @@ def test_async_executor_requires_double_buffering():
                       LookupServiceConfig(executor="turbo"), device=CPU)
 
 
-def test_routed_context_fails_its_batch_naming_item_10(cell):
+def test_an_unknown_context_fails_only_its_own_batch(cell):
+    """A context that is neither an `AsyncContext` nor a `RoutedContext`
+    fails its own batch with a TypeError; the batches around it are
+    served."""
     keys, q, lb = cell
     svc = _svc(keys, "async")
+    before = svc.submit(q[:5])
+    svc._async._launch_item(WorkItem(kind="read",
+                                     group=svc.batcher.take(force=True),
+                                     ctx=svc._async_context()))
     fut = svc.submit(q[:8])
     batch = svc.batcher.take(force=True)
     svc._async._launch_item(WorkItem(kind="read", group=batch,
                                      ctx=object()))
     svc._async._complete_ring_inline()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="object context"):
         fut.result(1.0)
+    np.testing.assert_array_equal(before.result(1.0), lb[:5])
     np.testing.assert_array_equal(svc.lookup(q[:8]), lb[:8])
 
 

@@ -155,6 +155,29 @@ def test_metrics_server_endpoints(served):
             assert ei.value.code == code, path
 
 
+def test_autotune_json_answers_200_with_a_retuner():
+    """`/autotune.json` renders the retuner's document when the provider
+    has one attached (the 404 above is a provider without one), the same
+    document the reference's exporter renders from the same keys."""
+    from repro_torch.autotune import AutotuneConfig
+
+    keys = np.arange(1, 4_001, dtype=np.uint64) * 5
+    svc = LookupService(keys, LookupServiceConfig(
+        index="pgm", autotune=AutotuneConfig(calibrate=False)), device=CPU)
+    with svc, MetricsServer(svc, port=0) as srv:
+        status, body = _get(f"http://127.0.0.1:{srv.port}", "/autotune.json")
+        assert status == 200
+        doc = json.loads(body)
+        assert doc["alive"] is False and doc["counters"]["polls"] == 0
+        assert doc["config"]["triggers"] == ["workload_drift",
+                                             "error_inflation", "slo_burn"]
+        assert "t_unix" in doc and "store" not in doc
+        ref_doc = json.loads(rexport.MetricsServer.render_autotune(
+            type("P", (), {"provider": svc})()))
+        ref_doc.pop("t_unix"), doc.pop("t_unix")
+        assert ref_doc == doc
+
+
 def test_metrics_server_trace_404_and_healthz_503_when_stopped():
     keys = np.arange(1, 2_001, dtype=np.uint64) * 3
     svc = LookupService(keys, LookupServiceConfig(executor="async"),

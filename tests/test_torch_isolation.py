@@ -14,10 +14,12 @@ from repro_torch.core import pgm, rmi, spec, tuning
 from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import ops
 from repro_torch.mutable import DeltaBuffer, MutableIndex
+from repro_torch.autotune import AutotuneConfig
+from repro_torch.core.spec import Tuner
 from repro_torch.serve.lookup import (IndexRegistry, LookupService,
                                       LookupServiceConfig,
-                                      MutableLookupService,
-                                      ShardedDispatcher)
+                                      MutableLookupService, RoutedDispatcher,
+                                      ShardedDispatcher, ShardTopology)
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -39,8 +41,30 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout)
-    assert res["modules"] >= 55
+    assert res["modules"] >= 60
     assert res["bad"] == [], f"port pulled in {res['bad']}"
+
+
+_IMPORT_ONE = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serve.lookup.topology", "repro_torch.autotune",
+    "repro_torch.autotune.store", "repro_torch.autotune.objective",
+    "repro_torch.autotune.retuner"])
+def test_each_new_module_alone_loads_no_jax_and_no_reference(module):
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout) == []
 
 
 @pytest.fixture
@@ -75,11 +99,21 @@ KEYS = np.arange(1, 1_001, dtype=np.uint64) * 7
     lambda: MutableIndex(KEYS),
     lambda: MutableLookupService(KEYS),
     lambda: LookupService(KEYS, LookupServiceConfig(executor="async")),
+    lambda: LookupService(KEYS, LookupServiceConfig(shards=2)),
+    lambda: LookupService(KEYS, LookupServiceConfig(executor="async",
+                                                    shards=2, replicas=2)),
+    lambda: RoutedDispatcher(ShardTopology.from_keys(KEYS, 2)),
+    lambda: LookupService(KEYS, LookupServiceConfig(
+        autotune=AutotuneConfig())),
+    lambda: Tuner(names=("rbs",)).tune_shards(KEYS, (0, 500, 1000)),
 ], ids=["rmi.build", "spec.build", "encode_keys", "prepare_f32_state",
         "rmi_from_reference", "pgm.build", "binary_search", "robin_hash",
         "from_reference", "Tuner.tune", "tuning.sweep", "LookupService",
         "IndexRegistry", "ShardedDispatcher", "DeltaBuffer",
-        "MutableIndex", "MutableLookupService", "LookupService_async"])
+        "MutableIndex", "MutableLookupService", "LookupService_async",
+        "LookupService_routed", "LookupService_routed_async",
+        "RoutedDispatcher", "LookupService_autotune",
+        "Tuner.tune_shards"])
 def test_device_none_raises_without_a_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
@@ -88,3 +122,19 @@ def test_device_none_raises_without_a_card(no_card, entry):
 def test_device_cpu_is_honoured(no_card):
     b = rmi.build(KEYS, branching=64, device="cpu")
     assert b.device == torch.device("cpu")
+
+
+def test_routed_service_and_retuner_honour_the_cpu(no_card):
+    svc = LookupService(KEYS, LookupServiceConfig(
+        executor="async", shards=2, replicas=2,
+        autotune=AutotuneConfig(calibrate=False)), device="cpu")
+    assert isinstance(svc.dispatcher, RoutedDispatcher)
+    assert {lane.device for grp in svc.dispatcher.lanes
+            for lane in grp} == {torch.device("cpu")}
+    assert all(g.data.device == torch.device("cpu")
+               for g in svc.generation.shards)
+    assert svc.autotune.device == torch.device("cpu")
+    q = KEYS[::7] + 1
+    np.testing.assert_array_equal(svc.lookup(q), np.searchsorted(KEYS, q))
+    d = svc.autotune.poll_once(force_trigger="workload_drift")
+    assert d["action"] in ("swapped", "rejected"), d

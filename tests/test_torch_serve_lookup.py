@@ -4,8 +4,9 @@ Batcher policy cases mirror `tests/test_serve_lookup.py`; the service
 (CPU, both backends, the kernels' plain versions behind ``"cuda"``)
 returns the reference's positions and scan windows bit for bit on the
 four surrogates, with the same health stats; plus hot swap under load,
-the atomic registry swap, padding and staging, the options that wait for
-later ports, and the serve driver on the CPU.
+the atomic registry swap, padding and staging, the refusals of invalid
+routed configs, and the serve driver on the CPU (broadcast, routed and
+with the autotune daemon).
 """
 import jax
 
@@ -31,6 +32,8 @@ from repro_torch.kernels.common import encode_keys
 from repro_torch.serve.lookup import (DEFAULT_HYPER, ClientBacklogFull,
                                       IndexRegistry, LookupService,
                                       LookupServiceConfig, MicroBatcher,
+                                      MutableLookupService,
+                                      MutableLookupServiceConfig,
                                       ShardedDispatcher, default_spec)
 
 CPU = "cpu"
@@ -524,23 +527,41 @@ def test_default_spec_and_config_match_reference():
     assert cfg.resolved_spec() == sp           # the spec wins wholesale
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (dict(executor="async", shards=2), "item 10"),
-    (dict(executor="async", slots=8, replicas=2), "item 10"),
-    (dict(executor="async", warm_buckets=(4096,), topology=object()),
-     "item 10"),
-    (dict(executor="async", warm_scan_lengths=(16,), autotune=object()),
-     "item 11"),
-    (dict(shards=2), "item 10"),
-    (dict(replicas=2), "item 10"),
-    (dict(topology=object()), "item 10"),
-    (dict(shard_tuner=spec.Tuner()), "item 10"),
-    (dict(autotune=object()), "item 11"),
+def _reference_refusal(case, keys):
+    from repro.serve.lookup import MutableLookupService as RMutable
+    from repro.serve.lookup import MutableLookupServiceConfig as RMutCfg
+    from repro.serve.lookup import ShardTopology as RShardTopology
+    if case == "shards0":
+        RShardTopology.from_keys(keys, 0)
+    elif case == "replicas0":
+        RShardTopology.from_keys(keys, 1, 0)
+    elif case == "shards2_replicas0":
+        RLookupService(keys, RLookupServiceConfig(shards=2, replicas=0))
+    else:
+        RMutable(keys, RMutCfg(shards=2))
+
+
+@pytest.mark.parametrize("case,make", [
+    ("shards0", lambda k: LookupService(
+        k, LookupServiceConfig(shards=0), device=CPU)),
+    ("replicas0", lambda k: LookupService(
+        k, LookupServiceConfig(replicas=0), device=CPU)),
+    ("shards2_replicas0", lambda k: LookupService(
+        k, LookupServiceConfig(shards=2, replicas=0), device=CPU)),
+    ("mutable_shards2", lambda k: MutableLookupService(
+        k, MutableLookupServiceConfig(shards=2), device=CPU)),
 ])
-def test_later_items_raise_not_implemented(cfg, item):
+def test_invalid_routed_configs_raise_the_references_value_error(case, make):
+    """Shard or replica counts below one, and a mutable service over a
+    routed topology, raise the reference's own ValueError (its topology's
+    message for the counts; the port refuses them even where the
+    reference's broadcast path would ignore them)."""
     keys = np.arange(1, 1_001, dtype=np.uint64)
-    with pytest.raises(NotImplementedError, match=item):
-        LookupService(keys, LookupServiceConfig(**cfg), device=CPU)
+    with pytest.raises(ValueError) as ref_err:
+        _reference_refusal(case, keys)
+    with pytest.raises(ValueError) as err:
+        make(keys)
+    assert str(err.value) == str(ref_err.value)
 
 
 def test_unknown_executor_is_a_value_error():
@@ -595,6 +616,27 @@ def test_driver_on_the_cpu_passes_doctor(tmp_path):
     assert "alerts: none firing" in lines
     assert "exact vs lower_bound oracle: True" in lines
     assert os.path.getsize(trace_out) > 0
+
+
+def test_driver_routed_with_replicas_passes_doctor():
+    out = _driver("--mode", "lookup", "--device", "cpu", "--doctor",
+                  "--n-keys", "30000", "--requests", "40",
+                  "--shards", "2", "--replicas", "2")
+    assert out.returncode == 0, out.stderr
+    assert "'n_shards': 2" in out.stdout and "'replicas': [2, 2]" in out.stdout
+    assert "over 2 shard(s)" in out.stdout
+    assert "exact vs lower_bound oracle: True" in out.stdout
+
+
+def test_driver_autotune_daemon_passes_doctor(tmp_path):
+    out = _driver("--mode", "lookup", "--device", "cpu", "--doctor",
+                  "--n-keys", "30000", "--requests", "40",
+                  "--autotune-daemon", "--autotune-store",
+                  str(tmp_path / "store"))
+    assert out.returncode == 0, out.stderr
+    assert "autotune: daemon=up" in out.stdout
+    assert "exact vs lower_bound oracle: True" in out.stdout
+    assert os.path.isdir(tmp_path / "store")
 
 
 def test_driver_refuses_what_waits_for_later_items():
