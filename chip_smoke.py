@@ -59,11 +59,20 @@ plans on the cuda backend (``stage_profile``).  On amzn the spec
 BTree of the reference's tests served at 200M keys, hot-spot traffic
 fires ``workload_drift`` and one poll lands a verified swap, on
 broadcast, again over the same spec store (no sweep), and at shards 2.
-Last the serve driver ``python -m repro_torch.launch.serve --mode lookup
---doctor`` as a subprocess, at its defaults (the async executor), with
-``--metrics-jsonl``, with ``--executor sync``, with ``--shards 2
---replicas 2`` and with ``--autotune-daemon --autotune-store``
-(``driver``).  One JSON line per phase; any failure
+Then token serving at the full width of granite-3-2b, weights drawn on
+the card from ``--seed`` (``tokens``): decode steps against ``forward``
+in float32 with TF32 off (two prompts of 32 tokens, argmax equal at every
+position), the reference driver's traffic through ``ServeEngine`` in bf16
+(8 requests, 8 new tokens, 4 slots: tokens/s, decode-step ms from CUDA
+events beside the step's byte bound, peak memory), and the paged KV
+cache's learned slot index through B1 on int32 keys, on a live layout
+and on 256 sequences of 1..8192 tokens, held against its plain version
+and ``np.searchsorted``.  Last the serve driver ``python -m
+repro_torch.launch.serve --mode lookup --doctor`` as a subprocess, at its
+defaults (the async executor), with ``--metrics-jsonl``, with
+``--executor sync``, with ``--shards 2 --replicas 2`` and with
+``--autotune-daemon --autotune-store``, and once in token mode at
+granite-3-2b's full width (``driver``).  One JSON line per phase; any failure
 exits nonzero.  The last line is the device summary ``{"ok": true,
 "device": {...}}``.  Full results go to ``--out``.
 
@@ -163,6 +172,18 @@ AUTOTUNE_HOT = 1_024           # lookups in the bottom 1/64 of the keys
 AUTOTUNE_AFTER = 20_000        # mixed queries answered after the swap
 DRIVER_SPEC = {"index": "rmi", "hyper": {"branching": 4096},
                "backend": "cuda"}
+#: token serving at granite-3-2b's full width, weights from --seed: (a)
+#: decode against forward in float32 (TF32 off) on two prompts; (b) the
+#: reference driver's traffic (src/repro/launch/serve.py:54-71: prompts of
+#: rng.integers(3, 10) tokens, numpy seed 0) through ServeEngine in bf16;
+#: (c) the learned slot index on a live layout and on vLLM's default
+#: max_num_seqs (256) of lengths 1..8192, every flat slot a query
+TOKENS_ARCH = "granite-3-2b"
+TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN = 2, 32
+TOKENS_CHECK_MAX_ERR = 1e-3    # |decode - forward| logits, float32
+TOKENS_REQUESTS, TOKENS_MAX_NEW = 8, 8
+TOKENS_MAX_BATCH, TOKENS_MAX_SEQ = 4, 128
+SLOT_SEQS, SLOT_MAX_LEN = 256, 8192
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +215,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_queued(fn, reps: int = 20, warmup: int = 3) -> float:
+    """As `cuda_ms`, with every launch queued behind a device sleep of
+    ~5 ms, so that a kernel shorter than its own host launch cost is
+    timed on the device alone and not at the host's launch rate."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1790,14 +1830,239 @@ def phase_tune(dev, cell, args, log, totals):
     return rec
 
 
+def phase_tokens(dev, args, log):
+    """Token serving at the full width of granite-3-2b; returns the phase
+    record and B1's int32 kernel entry for the ``kernels`` line."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.bounded_search import ops as bops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import LearnedSlotIndex
+
+    rec = {"phase": "tokens", "arch": TOKENS_ARCH}
+    # (a) decode against forward, float32 with TF32 off: the products must
+    # be float32 for the two paths to agree to the stated bound
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(get(TOKENS_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg32, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    rec["f32_init_s"] = time.perf_counter() - t0
+    rec["f32_weight_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in params.parameters())
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(
+        2, cfg32.vocab, (TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN))).to(dev)
+    with torch.inference_mode():
+        fwd, _ = M.forward(cfg32, params, {"tokens": toks})
+        cache = M.init_cache(cfg32, TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN,
+                             dev)
+        steps = []
+        for i in range(TOKENS_CHECK_LEN):
+            logits, cache = M.decode_step(cfg32, params, cache,
+                                          toks[:, i:i + 1])
+            steps.append(logits)
+    dec = torch.stack(steps, dim=1)
+    err = float((dec - fwd).abs().max())
+    agree = bool(torch.equal(dec[..., :cfg32.vocab].argmax(-1),
+                             fwd[..., :cfg32.vocab].argmax(-1)))
+    rec.update(decode_vs_forward_max_abs_err=err,
+               decode_vs_forward_argmax_equal=agree,
+               decode_vs_forward_positions=TOKENS_CHECK_PROMPTS
+               * TOKENS_CHECK_LEN,
+               logits_abs_max=float(fwd.abs().max()))
+    check(agree and err <= TOKENS_CHECK_MAX_ERR,
+          f"decode vs forward (float32): max |diff| {err}, argmax equal "
+          f"{agree}")
+    del params, cache, fwd, dec, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the reference driver's traffic through ServeEngine, bf16
+    cfg = get(TOKENS_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    rec["bf16_init_s"] = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    with torch.inference_mode():          # warm-up: cuBLAS handles, caches
+        M.decode_step(cfg, params, M.init_cache(
+            cfg, TOKENS_MAX_BATCH, TOKENS_MAX_SEQ, dev),
+            torch.zeros((TOKENS_MAX_BATCH, 1), dtype=torch.int32,
+                        device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve():
+        engine = ServeEngine(cfg, params, max_batch=TOKENS_MAX_BATCH,
+                             max_seq=TOKENS_MAX_SEQ, device=dev)
+        inner, events = engine._decode, []
+
+        def timed(cache, step_toks):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = inner(cache, step_toks)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        engine._decode = timed
+        trng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        rids = [engine.submit(
+            list(trng.integers(2, cfg.vocab, int(trng.integers(3, 10)))),
+            max_new=TOKENS_MAX_NEW) for _ in range(TOKENS_REQUESTS)]
+        outs = engine.run(max_steps=TOKENS_REQUESTS * (TOKENS_MAX_NEW + 12))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the example's second engine: the slot index of a live layout
+        engine2 = ServeEngine(cfg, params, max_batch=TOKENS_MAX_BATCH,
+                              max_seq=TOKENS_MAX_SEQ, device=dev)
+        for _ in range(3):
+            engine2.submit([2, 3, 4, 5], max_new=8)
+        engine2.step()
+        live = engine2.kv.slot_index()
+        live_slots = torch.arange(int(live.cum[-1]), dtype=torch.int32,
+                                  device=dev)
+        live_ids = live.lookup(live_slots)
+        # vLLM's max_num_seqs of lengths 1..8192, every flat slot a query
+        lens = np.random.default_rng(args.seed).integers(
+            1, SLOT_MAX_LEN + 1, SLOT_SEQS)
+        big = LearnedSlotIndex(np.concatenate([[0], np.cumsum(lens)]))
+        big_slots = torch.arange(int(big.cum[-1]), dtype=torch.int32,
+                                 device=dev)
+        big_ids = big.lookup(big_slots)
+        return (engine, rids, outs, wall, events, live, live_slots, live_ids,
+                big, big_slots, big_ids)
+
+    (engine, rids, outs, wall, events, live, live_slots, live_ids, big,
+     big_slots, big_ids), counts = driven(serve)
+    step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    # the same step captured as one CUDA graph: its replay is the step's
+    # device time without the host's gaps between eager launches
+    gcache = M.init_cache(cfg, TOKENS_MAX_BATCH, TOKENS_MAX_SEQ, dev)
+    gcache["len"].fill_(TOKENS_MAX_SEQ // 2)
+    gtoks = torch.full((TOKENS_MAX_BATCH, 1), 7, dtype=torch.int32,
+                       device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            eager, _ = M.decode_step(cfg, params, gcache, gtoks)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed, _ = M.decode_step(cfg, params, gcache, gtoks)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(replayed, eager), "decode step: graph replay differs "
+          "from the eager step")
+    graph_ms = cuda_ms(graph.replay)
+    n_tok = sum(len(v) for v in outs.values())
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in engine.cache["blocks"]["sub0"].values())
+    step_bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    rec.update(
+        requests=TOKENS_REQUESTS, max_new=TOKENS_MAX_NEW,
+        max_batch=TOKENS_MAX_BATCH, max_seq=TOKENS_MAX_SEQ,
+        tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+        decode_steps=len(step_ms),
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        step_ms_p99=float(np.percentile(step_ms, 99)),
+        step_ms_mean=float(step_ms.mean()),
+        step_bound_ms=step_bound_ms, step_graph_replay_ms=graph_ms,
+        idle_share_of_step=1 - graph_ms / float(np.median(step_ms)),
+        weight_bytes=weight_bytes,
+        kv_bytes=kv_bytes, peak_mem_gb=torch.cuda.max_memory_allocated()
+        / 1e9, launches=counts,
+        outputs={str(r): outs[r] for r in rids})
+    check(n_tok == TOKENS_REQUESTS * TOKENS_MAX_NEW
+          and all(len(outs[r]) == TOKENS_MAX_NEW for r in rids)
+          and all(0 <= t < cfg.vocab for r in rids for t in outs[r]),
+          f"engine emitted {n_tok} tokens")
+    check(counts["bounded_search"] >= 1,
+          "the slot index launched no bounded_search kernel")
+
+    # (c) the slot index: cuda against its plain version and numpy
+    errs = 0
+    for name, idx, slots, ids in (("live", live, live_slots, live_ids),
+                                  ("vllm_256", big, big_slots, big_ids)):
+        plain = idx.lookup(slots.cpu())
+        want = np.searchsorted(idx.cum, slots.cpu().numpy(), "right") - 1
+        e = diff(ids.cpu(), plain)
+        wrong = int((ids.cpu().numpy() != want).sum())
+        errs = max(errs, e)
+        rec[f"slot_index_{name}"] = {
+            "n_req": idx.n_req, "slots": slots.shape[0], "err": idx.err,
+            "max_width": 2 * idx.err + 2, "max_abs_err_vs_plain": e,
+            "wrong_vs_searchsorted": wrong}
+        check(e == 0 and wrong == 0, f"slot index ({name}): {e} vs plain, "
+              f"{wrong} wrong vs np.searchsorted")
+
+    # B1 on the timing layout's int32 inputs, as `lookup` gives them
+    cum = torch.from_numpy(big.cum.astype(np.int32)).to(dev)
+    q = big_slots + 1
+    pred = big_slots.float() * torch.tensor(np.float32(big.slope),
+                                            device=dev)
+    lo = torch.clamp(pred.to(torch.int32) - big.err, 0, big.n_req)
+    width = 2 * big.err + 2
+    m = q.shape[0]
+    _, count = bops.clip_windows(cum.shape[0], lo, width)
+    n_probes = int(bops.window_probes(count).sum())
+    b_ms, b_by = bound(m * (4 + 4 + 4) + cum.numel() * 4, n_probes * 6)
+    fns = {"b1_int32": lambda: bops.lower_bound_windows(cum, q, lo, width),
+           "b1_int32_plain": lambda: bops.lower_bound_windows_plain(
+               cum, q, lo, width),
+           "torch_searchsorted": lambda: torch.searchsorted(cum, q),
+           "lookup": lambda: big.lookup(big_slots),
+           "searchsorted_right_minus_1": lambda: torch.searchsorted(
+               cum, big_slots, right=True) - 1}
+    # device time (queued behind a sleep) and the host-paced time of
+    # back-to-back calls, in turns
+    timing = {f"{k}_ms": [] for k in fns}
+    timing.update({f"{k}_host_paced_ms": [] for k in fns})
+    for k in [*fns, *reversed(fns)]:
+        timing[f"{k}_ms"].append(cuda_ms_queued(fns[k]))
+        timing[f"{k}_host_paced_ms"].append(cuda_ms(fns[k]))
+    timing = {k: sum(v) / len(v) for k, v in timing.items()}
+    kernel_ms, plain_ms = timing["b1_int32_ms"], timing["b1_int32_plain_ms"]
+    library_ms = timing["torch_searchsorted_ms"]
+    rec["slot_index_timing"] = {
+        **timing, "b1_int32_bound_ms": b_ms, "b1_int32_bound_by": b_by,
+        "probes": n_probes, "queries": m}
+    emit(rec, log)
+    kernel = {
+        "name": "bounded_search_int32", "route": "cuda",
+        "source": KERNEL_SOURCES["bounded_search"][0],
+        "replaces": KERNEL_SOURCES["bounded_search"][1],
+        "launches": counts["bounded_search"], "max_abs_err": errs,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": library_ms}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, kernel
+
+
 def phase_driver(log):
     """The serve driver as a user runs it, with ``--doctor`` and an RMI
     spec on the cuda backend, five times: at its defaults (the async
     executor), with ``--metrics-jsonl`` (the file it writes is parsed),
     with ``--executor sync``, routed with ``--shards 2 --replicas 2``, and
-    with ``--autotune-daemon --autotune-store`` (a temporary directory).
-    Each must exit 0."""
+    with ``--autotune-daemon --autotune-store`` (a temporary directory);
+    then in token mode at granite-3-2b's full width (no ``--smoke``), 8
+    requests of 8 new tokens.  Each must exit 0."""
     import tempfile
+
+    from repro_torch.configs import get
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1808,15 +2073,20 @@ def phase_driver(log):
     if os.path.exists(jsonl):
         os.remove(jsonl)
     store = tempfile.mkdtemp(prefix="autotune_store_")
-    runs = {"default": [], "metrics_jsonl": ["--metrics-jsonl", jsonl],
-            "sync": ["--executor", "sync"],
-            "routed": ["--shards", "2", "--replicas", "2"],
-            "autotune": ["--autotune-daemon", "--autotune-store", store]}
+    lookup = ["--mode", "lookup", "--doctor", "--spec",
+              json.dumps(DRIVER_SPEC)]
+    runs = {"default": lookup,
+            "metrics_jsonl": [*lookup, "--metrics-jsonl", jsonl],
+            "sync": [*lookup, "--executor", "sync"],
+            "routed": [*lookup, "--shards", "2", "--replicas", "2"],
+            "autotune": [*lookup, "--autotune-daemon", "--autotune-store",
+                         store],
+            "tokens": ["--mode", "tokens", "--arch", TOKENS_ARCH,
+                       "--requests", str(TOKENS_REQUESTS), "--max-new",
+                       str(TOKENS_MAX_NEW)]}
     out = {}
     for label, extra in runs.items():
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
-               "lookup", "--doctor", "--spec", json.dumps(DRIVER_SPEC),
-               *extra]
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *extra]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                              text=True, timeout=600)
@@ -1833,6 +2103,14 @@ def phase_driver(log):
         emit(rec, log)
         check(res.returncode == 0, f"serve driver ({label}) exited "
               f"{res.returncode}")
+        if label == "tokens":
+            n_tok = TOKENS_REQUESTS * TOKENS_MAX_NEW
+            check(f"serving {TOKENS_ARCH} ({get(TOKENS_ARCH).n_layers} "
+                  "layers" in res.stdout and f"{n_tok} tokens for "
+                  f"{TOKENS_REQUESTS} requests" in res.stdout,
+                  "serve driver (tokens) did not serve the full model")
+            out[label] = rec
+            continue
         executor = "sync" if label == "sync" else "async"
         check(f"executor={executor}" in res.stdout,
               f"serve driver ({label}) did not run the {executor} executor")
@@ -1921,6 +2199,7 @@ def main(argv=None) -> int:
         del cell
         gc.collect()
         torch.cuda.empty_cache()
+    tokens, b1_int32 = phase_tokens(dev, args, log)
     driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
     for k in kernels:
@@ -1928,10 +2207,13 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(errs[k["name"]],
                                errs["rmi_bounds"] if k["name"] == "rmi_lookup"
                                else 0)
-    emit({"phase": "launches", **totals}, log)
+    kernels.append(b1_int32)
+    emit({"phase": "launches", **totals,
+          "bounded_search_int32": b1_int32["launches"]}, log)
     summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
-               "build_wall_s": build_s, "cells": cells, "driver": driver,
-               "total_s": time.perf_counter() - t_start, "log": log}
+               "build_wall_s": build_s, "cells": cells, "tokens": tokens,
+               "driver": driver, "total_s": time.perf_counter() - t_start,
+               "log": log}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(summary, f, indent=1)

@@ -1,0 +1,20 @@
+"""granite-3-2b [hf:ibm-granite/granite-3.0-2b-base; hf] — dense, GQA."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=49155,
+    head_dim=64,
+    rope=True,
+    norm="rmsnorm",
+    act="swiglu",
+    tie_embeddings=True,
+    source="hf:ibm-granite/granite-3.0-2b-base",
+    notes=("GQA kv=8", "tied embeddings"),
+)

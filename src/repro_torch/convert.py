@@ -1,7 +1,9 @@
-"""Carry a reference index's model across into the port.
+"""Carry a reference index's model, or a reference LM's weights, across
+into the port.
 
 The reference keeps its state as arrays; handed over as numpy, the same
-model becomes a port `IndexBuild`.  Error bounds are re-verified through
+model becomes a port `IndexBuild` (or, for the LM, a port `Decoder`:
+`decoder_from_reference`).  Error bounds are re-verified through
 the port's own arithmetic, never copied: the reference's table is valid
 only under the arithmetic that verified it.  Integer state (radix tables,
 B-tree levels, hash slots) carries no error of its own and is carried as
@@ -12,10 +14,13 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core import (base, btree, hashmap, pgm, radix_spline, rbs,
                               rmi)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
 
 
 def rmi_from_reference(ref_state: Mapping[str, np.ndarray], keys: np.ndarray,
@@ -120,3 +125,43 @@ def from_reference(name: str, ref_state, keys: np.ndarray,
         raise ValueError(f"no converter for index {name!r}; "
                          f"known: {sorted(FROM_REFERENCE)}") from None
     return fn(ref_state, keys, hyper, device=device)
+
+
+def decoder_from_reference(cfg: ModelConfig, params_np,
+                           device=None) -> transformer.Decoder:
+    """The port's decoder with the reference's weights.
+
+    ``params_np`` is the reference's ``init_params`` tree with every leaf
+    as numpy; bf16 leaves come as float32 (exact) and are cast back to
+    the parameter's type here.  The leading layer axis that the
+    reference's ``vmap`` gives ``params["blocks"]["sub0"]`` is unstacked
+    into ``blocks[i]``.  Every parameter must be in the tree, and every
+    leaf of the tree must be used.
+    """
+    dev = resolve_device(device)
+    model = transformer.Decoder(cfg, device="meta")
+    state, used = {}, 0
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            arr = np.asarray(params_np["blocks"]["sub0"][parts[2]][parts[3]],
+                             np.float32)[int(parts[1])]
+        else:
+            arr = np.asarray(params_np[parts[0]][parts[1]], np.float32)
+        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
+                                                         dtype=p.dtype)
+        used += arr.size
+    leaves = sum(np.asarray(a).size for a in _leaves(params_np))
+    if used != leaves:
+        raise ValueError(f"reference tree has {leaves} values, the port's "
+                         f"{cfg.name} decoder takes {used}")
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

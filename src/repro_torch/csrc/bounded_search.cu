@@ -27,6 +27,17 @@
 // for every width.  The loop mirrors the plain version step for
 // step (floor division, clip, position n as +inf, stop at an empty window),
 // so the two agree bit for bit on every input.
+//
+// Keys are the codec's int64 or plain int32 (key_bytes 8 or 4), queries of
+// the same type.  The int32 instantiation serves the paged KV cache's slot
+// index (src/repro/serve/kv_cache.py::LearnedSlotIndex.lookup): cumulative
+// sequence lengths, a few hundred to a few thousand, all in L2, with about
+// a million flat slots as queries.  There a query reads 4 + 4 bytes and
+// writes 4, and its probes hit L2: the bound is the queries' own bytes.
+// Searching int32 in place, rather than widening cum and the slots to int64,
+// saves a cast kernel and its bytes on every lookup.  The TPU's path took
+// its exact fallback (no tiles) for windows wider than 2048; this kernel has
+// one code path for every width, and the answers are the same.
 #include <climits>
 
 #include "lookup.cuh"
@@ -35,10 +46,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename LoT, typename HiT>
+template <typename KeyT, typename LoT, typename HiT>
 __global__ void __launch_bounds__(kThreads)
-    bounded_search_kernel(const long long* __restrict__ data, long long n,
-                          const long long* __restrict__ queries,
+    bounded_search_kernel(const KeyT* __restrict__ data, long long n,
+                          const KeyT* __restrict__ queries,
                           const LoT* __restrict__ lo_in,
                           const HiT* __restrict__ hi_in, int* __restrict__ out,
                           long long m, long long max_width) {
@@ -47,41 +58,52 @@ __global__ void __launch_bounds__(kThreads)
   const long long hi = hi_in != nullptr ? (long long)hi_in[i] : LLONG_MAX;
   const lookup::Window w =
       lookup::clip_window((long long)lo_in[i], hi, n, max_width);
-  out[i] = lookup::window_lower_bound(data, (int)n, queries[i], w);
+  out[i] = lookup::window_lower_bound<KeyT>(data, (int)n, queries[i], w);
 }
 
-template <typename LoT, typename HiT>
-int launch(const void* data, long long n, const void* queries, const void* lo,
-           const void* hi, void* out, long long m, long long max_width,
-           void* stream) {
-  const long long blocks = (m + kThreads - 1) / kThreads;
-  bounded_search_kernel<LoT, HiT>
-      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          (const long long*)data, n, (const long long*)queries,
-          (const LoT*)lo, (const HiT*)hi, (int*)out, m, max_width);
+struct Args {
+  const void *data, *queries, *lo, *hi;
+  void* out;
+  long long n, m, max_width;
+  void* stream;
+};
+
+template <typename KeyT, typename LoT, typename HiT>
+int launch(const Args& a) {
+  const long long blocks = (a.m + kThreads - 1) / kThreads;
+  bounded_search_kernel<KeyT, LoT, HiT>
+      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)a.stream>>>(
+          (const KeyT*)a.data, a.n, (const KeyT*)a.queries, (const LoT*)a.lo,
+          (const HiT*)a.hi, (int*)a.out, a.m, a.max_width);
   return (int)cudaGetLastError();
+}
+
+template <typename KeyT, typename LoT>
+int launch_hi(const Args& a, int hi_bytes) {
+  if (hi_bytes == 4) return launch<KeyT, LoT, int>(a);
+  if (hi_bytes == 8) return launch<KeyT, LoT, long long>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename KeyT>
+int launch_lo(const Args& a, int lo_bytes, int hi_bytes) {
+  if (lo_bytes == 4) return launch_hi<KeyT, int>(a, hi_bytes);
+  if (lo_bytes == 8) return launch_hi<KeyT, long long>(a, hi_bytes);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// lo and hi are int32 or int64 (lo_bytes, hi_bytes: 4 or 8); hi may be null.
+// data and queries are int64 or int32 (key_bytes: 8 or 4); lo and hi are
+// int32 or int64 (lo_bytes, hi_bytes: 4 or 8); hi may be null.
 extern "C" int bounded_search(const void* data, long long n,
-                              const void* queries, const void* lo,
-                              int lo_bytes, const void* hi, int hi_bytes,
-                              void* out, long long m, long long max_width,
-                              void* stream) {
+                              const void* queries, int key_bytes,
+                              const void* lo, int lo_bytes, const void* hi,
+                              int hi_bytes, void* out, long long m,
+                              long long max_width, void* stream) {
   if (hi == nullptr) hi_bytes = lo_bytes;
-  if (lo_bytes == 4 && hi_bytes == 4)
-    return launch<int, int>(data, n, queries, lo, hi, out, m, max_width,
-                            stream);
-  if (lo_bytes == 4 && hi_bytes == 8)
-    return launch<int, long long>(data, n, queries, lo, hi, out, m, max_width,
-                                  stream);
-  if (lo_bytes == 8 && hi_bytes == 4)
-    return launch<long long, int>(data, n, queries, lo, hi, out, m, max_width,
-                                  stream);
-  if (lo_bytes == 8 && hi_bytes == 8)
-    return launch<long long, long long>(data, n, queries, lo, hi, out, m,
-                                        max_width, stream);
+  const Args a{data, queries, lo, hi, out, n, m, max_width, stream};
+  if (key_bytes == 8) return launch_lo<long long>(a, lo_bytes, hi_bytes);
+  if (key_bytes == 4) return launch_lo<int>(a, lo_bytes, hi_bytes);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 // the bounded lower-bound search over it (B1's loop).
 //
 // Keys arrive in the port's codec: uint64 with the sign bit flipped, stored
-// as int64, so a signed compare is the uint64 compare.
+// as int64, so a signed compare is the uint64 compare.  B1 also takes int32
+// keys, compared as signed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,15 +38,18 @@ __device__ __forceinline__ Window clip_window(long long lo, long long hi,
 
 // lo plus the count of keys below q in the window: the branchless binary
 // search, run while the window is non-empty, so a query makes
-// ceil(log2(count + 1)) probes, each one dependent load.
+// ceil(log2(count + 1)) probes, each one dependent load.  KeyT is long long
+// (the codec's keys) or int (int32 keys compared as signed, such as the KV
+// cache's cumulative lengths); the loop is the same for both.
+template <typename KeyT>
 __device__ __forceinline__ int window_lower_bound(
-    const long long* __restrict__ data, int n, long long q, Window w) {
+    const KeyT* __restrict__ data, int n, KeyT q, Window w) {
   int lo = w.lo;
   unsigned count = w.count;
   while (count > 0) {
     const unsigned step = count >> 1;
     const int idx = lo + (int)step;
-    const long long probe = __ldg(data + (idx < n ? idx : n - 1));
+    const KeyT probe = __ldg(data + (idx < n ? idx : n - 1));
     const bool right = (probe < q) && (idx < n);
     lo = right ? idx + 1 : lo;
     count = right ? count - step - 1 : step;

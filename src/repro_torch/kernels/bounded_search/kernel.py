@@ -15,9 +15,9 @@ import torch
 from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_void_p]
 
 
 def _lib():
@@ -30,7 +30,8 @@ def _lib():
 def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
            max_width: int, hi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int32 ``lo + #(keys < q)`` over each query's window
-    ``[clip(lo, 0, n-1), min(hi, lo + max_width - 1, n)]``."""
+    ``[clip(lo, 0, n-1), min(hi, lo + max_width - 1, n)]``; ``data`` and
+    ``queries`` are both int64 (encoded keys) or both int32."""
     n, m = data.shape[0], queries.shape[0]
     named = [("data", data), ("queries", queries), ("lo", lo)]
     if hi is not None:
@@ -40,8 +41,10 @@ def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
             raise ValueError(f"{name} must be on the data's CUDA device")
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous vector")
-    if data.dtype != torch.int64 or queries.dtype != torch.int64:
-        raise ValueError("data and queries must be encoded int64 keys")
+    if (data.dtype not in (torch.int32, torch.int64)
+            or queries.dtype != data.dtype):
+        raise ValueError("data and queries must both be encoded int64 keys "
+                         "or both int32")
     for name, t in named[2:]:
         if t.dtype not in (torch.int32, torch.int64) or t.shape[0] != m:
             raise ValueError(f"{name} must be int32 or int64, one per query")
@@ -53,8 +56,9 @@ def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().bounded_search(
-            data.data_ptr(), n, queries.data_ptr(), lo.data_ptr(),
-            lo.element_size(), hi.data_ptr() if hi is not None else None,
+            data.data_ptr(), n, queries.data_ptr(), data.element_size(),
+            lo.data_ptr(), lo.element_size(),
+            hi.data_ptr() if hi is not None else None,
             hi.element_size() if hi is not None else 0, out.data_ptr(), m,
             int(max_width), stream)
     if rc != 0:

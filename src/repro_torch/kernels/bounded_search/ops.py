@@ -60,7 +60,8 @@ def lower_bound_windows_plain(data, queries, lo, max_width: int, hi=None):
 def lower_bound_windows(data, queries, lo, max_width: int, hi=None):
     """Exact LB(q) for every query, as int32.
 
-    ``data`` [n] and ``queries`` [m] are encoded keys (`kernels.common`);
+    ``data`` [n] and ``queries`` [m] are encoded keys (`kernels.common`)
+    or both int32 (the KV cache's slot index);
     ``lo`` [m] (and ``hi`` [m], inclusive, if given) bound windows that
     hold LB: ``lo <= LB <= min(hi, lo + max_width - 1)``.
     """

@@ -1,4 +1,17 @@
-"""Serve driver: learned-index lookup serving on one device.
+"""Serve driver: token generation and learned-index lookup serving on one
+device.
+
+Token mode, the default as in the reference (the paged-KV continuous
+batching engine, greedy decoding, weights drawn from a seed):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --requests 8 --max-new 8
+
+runs at the architecture's full width on the CUDA card; ``--smoke`` takes
+its reduced config and ``--device cpu`` asks for the CPU.  The dense and
+vlm families are ported; the others exit 2 naming ROADMAP item 13.
+
+Lookup mode:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lookup \\
         --dataset amzn --requests 200 --keys-per-request 64
@@ -30,8 +43,7 @@ against the error bound, drift) and the alert verdict.  ``--doctor``
 exits nonzero when an alert is firing at the end of the run, an answer
 is wrong, or the autotune daemon thread died during the run.
 
-The lookup mode of the reference's `repro.launch.serve`.  Token mode
-waits for the LM scaffolding (ROADMAP item 13).
+The port of the reference's `repro.launch.serve`.
 """
 from __future__ import annotations
 
@@ -40,6 +52,34 @@ import contextlib
 import time
 
 import numpy as np
+
+
+def run_tokens(args, cfg) -> None:
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device=args.device)
+    engine = ServeEngine(cfg, params, max_batch=args.max_batch,
+                         max_seq=args.max_seq, device=args.device)
+    print(f"serving {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) on {engine.device}, weights from "
+          f"seed 0 in {time.time() - t0:.2f}s")
+
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    rids = [engine.submit(
+        list(rng.integers(2, cfg.vocab, int(rng.integers(3, 10)))),
+        max_new=args.max_new) for _ in range(args.requests)]
+    outs = engine.run(max_steps=args.requests * (args.max_new + 12))
+    dt = time.time() - t0
+    n_tok = sum(len(v) for v in outs.values())
+    for rid in rids:
+        print(f"request {rid}: {outs[rid]}")
+    print(f"\n{n_tok} tokens for {len(rids)} requests in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s, continuous batching over "
+          f"{args.max_batch} slots); kv pool util now "
+          f"{engine.kv.alloc.utilization:.2f}")
 
 
 def run_lookup(args) -> None:
@@ -166,12 +206,20 @@ def run_lookup(args) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("tokens", "lookup"), default="lookup",
-                    help="lookup serving; token mode waits for the LM "
-                         "scaffolding (ROADMAP item 13)")
+    ap.add_argument("--mode", choices=("tokens", "lookup"), default="tokens",
+                    help="token generation (default) or lookup serving")
+    # token mode
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced config")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--max-batch", type=int, default=2048,
-                    help="keys per dispatch (flush trigger)")
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=128)
+    # shared / lookup mode
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="decode slots (tokens, default 4) or keys per "
+                         "dispatch (lookup, the flush trigger, default "
+                         "2048)")
     ap.add_argument("--dataset", default="amzn",
                     choices=sorted(("amzn", "face", "osm", "wiki")))
     ap.add_argument("--index", default="rmi")
@@ -231,9 +279,23 @@ def main(argv=None) -> None:
                          "is firing, the oracle check fails, or the "
                          "autotune daemon thread died during the run")
     args = ap.parse_args(argv)
-    if args.mode == "tokens":
-        ap.error("--mode tokens needs the LM scaffolding (ROADMAP item 13)")
-    run_lookup(args)
+    if args.mode == "lookup":
+        if args.max_batch is None:
+            args.max_batch = 2048
+        run_lookup(args)
+        return
+    if args.max_batch is None:
+        args.max_batch = 4
+    from repro_torch.configs import ARCHS, get, get_smoke
+    from repro_torch.models import transformer
+    if args.arch not in ARCHS:
+        ap.error(f"unknown --arch {args.arch!r}; known: {sorted(ARCHS)}")
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    try:
+        transformer.stack_plan(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
+    run_tokens(args, cfg)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,68 @@
+"""Unified model API, as the reference's `repro.models.model`:
+
+  init_params(cfg, seed, device)      the `Decoder` module, weights from a seed
+  forward(cfg, params, batch)         logits + aux (prefill)
+  loss_fn(cfg, params, batch)         scalar next-token loss (forward only)
+  decode_step(cfg, params, cache, t)  one-token serve step
+  cache_shapes / init_cache           decode-state shapes (meta) / zeros
+
+Only the dense and vlm families are ported; the others raise
+`NotImplementedError` naming ROADMAP item 13.  ``param_specs``,
+``cache_specs`` and ``input_specs`` are the reference's sharding and
+dry-run surface and wait for the port's ``dist/``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> T.Decoder:
+    """The decoder with weights drawn from ``seed`` on ``device`` (``None``
+    means the CUDA card; ``"meta"`` allocates nothing)."""
+    T.stack_plan(cfg)
+    dev = resolve_device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return T.Decoder(cfg, gen, dev)
+
+
+def forward(cfg: ModelConfig, params: T.Decoder, batch):
+    return T.decoder_forward(cfg, params, batch["tokens"])
+
+
+def loss_fn(cfg: ModelConfig, params: T.Decoder, batch):
+    """Next-token cross entropy (+ aux) with float32 logits math."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).float()
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux
+
+
+def decode_step(cfg: ModelConfig, params: T.Decoder, cache, tokens):
+    return T.decoder_decode(cfg, params, cache, tokens)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
+    return T.init_cache_shapes(cfg, batch, s_max)
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    """A zeroed decode cache on ``device`` (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+    sh = cache_shapes(cfg, batch, s_max)
+    kv = sh["blocks"]["sub0"]
+    return {"blocks": {"sub0": {
+                k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                for k, t in kv.items()}},
+            "len": torch.zeros(sh["len"].shape, dtype=torch.int32,
+                               device=dev)}

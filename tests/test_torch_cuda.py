@@ -795,3 +795,99 @@ def test_a_full_routed_ring_stays_exact_with_a_host_set_per_lane(card,
     assert svc.exec_cache.graph_stats()["graph_replays"] == touched
     # sets in use at once: a full ring, one completing, one launching
     assert 4 <= len(ex._free_hosts) <= (2 + 2) * 4
+
+
+# ---------------------------------------------------------------------------
+# token serving: B1 on int32 keys, the slot index, the engine
+# ---------------------------------------------------------------------------
+def _int32_widths():
+    pow2 = [2 ** k + d for k in range(1, 17) for d in (-1, 0, 1)]
+    return sorted({w for w in list(range(1, 65)) + pow2 if 1 <= w <= 2 ** 16})
+
+
+@pytest.mark.parametrize("layout", ["random", "near_2_31", "empty_windows"])
+def test_bounded_search_int32_vs_plain(card, layout):
+    """Every width up to 2^16 on each layout; ``empty_windows`` gives each
+    query a ``hi`` below its ``lo``, so the kernel returns the clipped
+    start."""
+    rng = np.random.default_rng(17)
+    if layout == "near_2_31":
+        keys = np.sort(rng.choice(2 ** 24, 70_000, replace=False)
+                       + (2 ** 31 - 2 ** 24)).astype(np.int32)
+        keys[-1] = 2 ** 31 - 1
+    else:
+        keys = np.sort(rng.integers(-2 ** 20, 2 ** 24, 70_000)).astype(np.int32)
+    m = 50_000
+    q = np.concatenate([keys[rng.integers(0, len(keys), m // 2)],
+                        rng.integers(int(keys[0]) - 5, 2 ** 31 - 1, m - m // 2,
+                                     dtype=np.int64)]).astype(np.int32)
+    lb = np.searchsorted(keys, q)
+    d, qt = torch.from_numpy(keys).to(card), torch.from_numpy(q).to(card)
+    for width in _int32_widths():
+        hi = None
+        lo = np.maximum(lb - rng.integers(0, width, m), 0)
+        if layout == "empty_windows":
+            lo = rng.integers(-3, len(keys), m)
+            hi = torch.from_numpy((lo - rng.integers(1, 4, m)).astype(
+                np.int32)).to(card)
+        lo_t = torch.from_numpy(lo.astype(np.int32)).to(card)
+        before = bs_kernel.launch.launches
+        got = lower_bound_windows(d, qt, lo_t, width, hi)
+        torch.cuda.synchronize()
+        assert bs_kernel.launch.launches == before + 1
+        assert torch.equal(got, lower_bound_windows_plain(d, qt, lo_t, width,
+                                                          hi)), width
+        want = (np.clip(lo, 0, len(keys) - 1) if hi is not None else lb)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["vllm_256", "one_long", "equal"])
+def test_learned_slot_index_on_the_card(card, layout):
+    from repro_torch.serve.kv_cache import LearnedSlotIndex
+
+    rng = np.random.default_rng(5)
+    lens = {"vllm_256": lambda: rng.integers(1, 8193, 256),
+            "one_long": lambda: np.r_[60_000, rng.integers(1, 40, 2999)],
+            "equal": lambda: np.full(64, 16)}[layout]()
+    cum = np.concatenate([[0], np.cumsum(lens)])
+    idx = LearnedSlotIndex(cum)
+    slots = np.arange(int(cum[-1]), dtype=np.int32)
+    before = bs_kernel.launch.launches
+    got = idx.lookup(torch.from_numpy(slots).to(card))
+    torch.cuda.synchronize()
+    assert bs_kernel.launch.launches == before + 1
+    plain = idx.lookup(torch.from_numpy(slots))
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.searchsorted(cum, slots, "right") - 1)
+
+
+def test_smoke_engine_on_the_card_emits_the_cpu_tokens(card):
+    """float32 with TF32 off (the card's default for float32 products,
+    set here explicitly): greedy tokens must be the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), dtype="float32")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        gpu = M.init_params(cfg, seed=0, device="cpu").to(card)
+        outs = []
+        for params, dev in ((cpu, "cpu"), (gpu, card)):
+            eng = ServeEngine(cfg, params, max_batch=4, max_seq=96,
+                              page_size=8, device=dev)
+            rng = np.random.default_rng(0)
+            for _ in range(6):
+                eng.submit(list(rng.integers(2, cfg.vocab,
+                                             rng.integers(3, 9))), max_new=6)
+            outs.append(eng.run(max_steps=64))
+            assert eng.cache["blocks"]["sub0"]["k"].device.type == \
+                torch.device(dev).type
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[0] == outs[1] and len(outs[0]) == 6

@@ -16,6 +16,9 @@ from repro_torch.kernels.rmi_lookup import ops
 from repro_torch.mutable import DeltaBuffer, MutableIndex
 from repro_torch.autotune import AutotuneConfig
 from repro_torch.core.spec import Tuner
+from repro_torch.configs import get_smoke
+from repro_torch.models import model as M
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.lookup import (IndexRegistry, LookupService,
                                       LookupServiceConfig,
                                       MutableLookupService, RoutedDispatcher,
@@ -56,7 +59,8 @@ print(json.dumps(sorted(m for m in sys.modules
 @pytest.mark.parametrize("module", [
     "repro_torch.serve.lookup.topology", "repro_torch.autotune",
     "repro_torch.autotune.store", "repro_torch.autotune.objective",
-    "repro_torch.autotune.retuner"])
+    "repro_torch.autotune.retuner", "repro_torch.models.model",
+    "repro_torch.serve.engine", "repro_torch.configs"])
 def test_each_new_module_alone_loads_no_jax_and_no_reference(module):
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src)
@@ -138,3 +142,25 @@ def test_routed_service_and_retuner_honour_the_cpu(no_card):
     np.testing.assert_array_equal(svc.lookup(q), np.searchsorted(KEYS, q))
     d = svc.autotune.poll_once(force_trigger="workload_drift")
     assert d["action"] in ("swapped", "rejected"), d
+
+
+def test_token_serving_refuses_the_cpu_unasked(no_card):
+    cfg = get_smoke("granite-3-2b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_params(cfg)
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_cache(cfg, 2, 8)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_token_driver_refuses_the_cpu_unasked():
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--mode", "tokens", "--smoke"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "tok/s" not in out.stdout
