@@ -59,22 +59,30 @@ plans on the cuda backend (``stage_profile``).  On amzn the spec
 BTree of the reference's tests served at 200M keys, hot-spot traffic
 fires ``workload_drift`` and one poll lands a verified swap, on
 broadcast, again over the same spec store (no sweep), and at shards 2.
-Then token serving at the full width of granite-3-2b, weights drawn on
-the card from ``--seed`` (``tokens``): decode steps against ``forward``
-in float32 with TF32 off (two prompts of 32 tokens, argmax equal at every
-position), the reference driver's traffic through ``ServeEngine`` in bf16
-(8 requests, 8 new tokens, 4 slots: tokens/s, decode-step ms from CUDA
-events beside the step's byte bound, peak memory), and the paged KV
-cache's learned slot index through B1 on int32 keys, on a live layout
-and on 256 sequences of 1..8192 tokens, held against its plain version
-and ``np.searchsorted``.  Last the serve driver ``python -m
-repro_torch.launch.serve --mode lookup --doctor`` as a subprocess, at its
-defaults (the async executor), with ``--metrics-jsonl``, with
-``--executor sync``, with ``--shards 2 --replicas 2`` and with
-``--autotune-daemon --autotune-store``, and once in token mode at
-granite-3-2b's full width (``driver``).  One JSON line per phase; any failure
-exits nonzero.  The last line is the device summary ``{"ok": true,
-"device": {...}}``.  Full results go to ``--out``.
+Then token serving, weights drawn on the card from ``--seed``, at the
+published width of granite-3-2b (``tokens``), deepseek-moe-16b
+(``tokens_moe``, the moe family) and mamba2-2.7b (``tokens_ssm``, the ssm
+family): decode steps against ``forward`` in float32 with TF32 off (two
+prompts of 32 tokens, argmax equal at every position; deepseek cut to 4
+layers and made dropless for the check), the reference driver's traffic
+through ``ServeEngine`` in bf16 at full depth (8 requests, 8 new tokens, 4
+slots: tokens/s, decode-step ms from CUDA events beside the step's byte
+bound and its CUDA graph replay, peak memory; MoE: ``torch.searchsorted``'s
+share of a step; SSM: each request served alone gives the batched
+tokens), and the paged KV cache's learned slot index through B1 on int32
+keys on a live layout (granite also on 256 sequences of 1..8192 tokens,
+with B1's timings), held against its plain version and
+``np.searchsorted``; then jamba-1.5-large-398b (the hybrid family) and
+mixtral-8x22b, which do not fit one card, at their smoke widths, the
+card's tokens against the CPU's (``tokens_smoke``).  Last the serve
+driver ``python -m repro_torch.launch.serve --mode lookup --doctor`` as a
+subprocess, at its defaults (the async executor), with
+``--metrics-jsonl``, with ``--executor sync``, with ``--shards 2
+--replicas 2`` and with ``--autotune-daemon --autotune-store``, and in
+token mode at the full width of each token phase's arch (``driver``).
+One JSON line per phase; any failure exits nonzero.  The last line is the
+device summary ``{"ok": true, "device": {...}}``.  Full results go to
+``--out``.
 
 Kernel launches: each kernel wrapper counts the launches it makes, and a
 launch it makes while its stream is captured into a CUDA graph is counted
@@ -179,6 +187,15 @@ DRIVER_SPEC = {"index": "rmi", "hyper": {"branching": 4096},
 #: (c) the learned slot index on a live layout and on vLLM's default
 #: max_num_seqs (256) of lengths 1..8192, every flat slot a query
 TOKENS_ARCH = "granite-3-2b"
+#: the token phases, each arch at its published width and depth: (arch,
+#: layers of the float32 check, None for all).  deepseek-moe-16b's check
+#: keeps pro0 and 3 MoE layers: its 28 layers in float32 (~66 GB) leave no
+#: room on one card
+TOKEN_PHASES = {"tokens": (TOKENS_ARCH, None),
+                "tokens_moe": ("deepseek-moe-16b", 4),
+                "tokens_ssm": ("mamba2-2.7b", None)}
+#: configs that do not fit one card, served at their smoke widths
+SMOKE_ENGINE_ARCHS = ("jamba-1.5-large-398b", "mixtral-8x22b")
 TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN = 2, 32
 TOKENS_CHECK_MAX_ERR = 1e-3    # |decode - forward| logits, float32
 TOKENS_REQUESTS, TOKENS_MAX_NEW = 8, 8
@@ -1830,26 +1847,15 @@ def phase_tune(dev, cell, args, log, totals):
     return rec
 
 
-def phase_tokens(dev, args, log):
-    """Token serving at the full width of granite-3-2b; returns the phase
-    record and B1's int32 kernel entry for the ``kernels`` line."""
-    import dataclasses
+def _decode_vs_forward(dev, args, cfg32, rec):
+    """Decode steps against ``forward`` in float32, TF32 off: argmax equal
+    at every position and max |diff| within TOKENS_CHECK_MAX_ERR."""
     import gc
 
     import numpy as np
     import torch
-    from repro_torch.configs import get
-    from repro_torch.kernels.bounded_search import ops as bops
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.kv_cache import LearnedSlotIndex
 
-    rec = {"phase": "tokens", "arch": TOKENS_ARCH}
-    # (a) decode against forward, float32 with TF32 off: the products must
-    # be float32 for the two paths to agree to the stated bound
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(get(TOKENS_ARCH), dtype="float32")
     t0 = time.perf_counter()
     params = M.init_params(cfg32, seed=args.seed, device=dev)
     torch.cuda.synchronize()
@@ -1860,7 +1866,7 @@ def phase_tokens(dev, args, log):
     toks = torch.from_numpy(rng.integers(
         2, cfg32.vocab, (TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN))).to(dev)
     with torch.inference_mode():
-        fwd, _ = M.forward(cfg32, params, {"tokens": toks})
+        fwd, aux = M.forward(cfg32, params, {"tokens": toks})
         cache = M.init_cache(cfg32, TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN,
                              dev)
         steps = []
@@ -1875,17 +1881,84 @@ def phase_tokens(dev, args, log):
     rec.update(decode_vs_forward_max_abs_err=err,
                decode_vs_forward_argmax_equal=agree,
                decode_vs_forward_positions=TOKENS_CHECK_PROMPTS
-               * TOKENS_CHECK_LEN,
+               * TOKENS_CHECK_LEN, f32_forward_aux=float(aux),
                logits_abs_max=float(fwd.abs().max()))
     check(agree and err <= TOKENS_CHECK_MAX_ERR,
-          f"decode vs forward (float32): max |diff| {err}, argmax equal "
-          f"{agree}")
+          f"{rec['phase']}: decode vs forward (float32): max |diff| {err}, "
+          f"argmax equal {agree}")
     del params, cache, fwd, dec, steps
     gc.collect()
     torch.cuda.empty_cache()
 
+
+def _live_slot_index(engine_of):
+    """The example's second engine: three requests, one step, the slot
+    index of that live layout over every flat slot."""
+    import torch
+    engine = engine_of()
+    for _ in range(3):
+        engine.submit([2, 3, 4, 5], max_new=8)
+    engine.step()
+    live = engine.kv.slot_index()
+    slots = torch.arange(int(live.cum[-1]), dtype=torch.int32,
+                         device=engine.device)
+    return live, slots, live.lookup(slots)
+
+
+def _check_slot_index(rec, name, idx, slots, ids):
+    """The slot index's answers against its plain version and numpy."""
+    import numpy as np
+    plain = idx.lookup(slots.cpu())
+    want = np.searchsorted(idx.cum, slots.cpu().numpy(), "right") - 1
+    e = diff(ids.cpu(), plain)
+    wrong = int((ids.cpu().numpy() != want).sum())
+    rec[f"slot_index_{name}"] = {
+        "n_req": idx.n_req, "slots": slots.shape[0], "err": idx.err,
+        "max_width": 2 * idx.err + 2, "max_abs_err_vs_plain": e,
+        "wrong_vs_searchsorted": wrong}
+    check(e == 0 and wrong == 0, f"{rec['phase']}: slot index ({name}): "
+          f"{e} vs plain, {wrong} wrong vs np.searchsorted")
+    return e
+
+
+def phase_tokens(dev, args, log, phase="tokens"):
+    """Token serving at the full width of ``TOKEN_PHASES[phase]``'s arch;
+    returns the phase record and, for ``tokens``, B1's int32 kernel entry
+    for the ``kernels`` line (else None)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import LearnedSlotIndex
+
+    arch, check_layers = TOKEN_PHASES[phase]
+    rec = {"phase": phase, "arch": arch}
+    # (a) decode against forward, float32 with TF32 off: the products must
+    # be float32 for the two paths to agree to the stated bound
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(get(arch), dtype="float32")
+    if check_layers:
+        cfg32 = dataclasses.replace(cfg32, n_layers=check_layers)
+        rec["check_layers"] = check_layers
+    if cfg32.n_experts:
+        # a prefill of 64 tokens drops pairs at the config's capacity, a
+        # decode step of 2 never does: hold both to the dropless function
+        t = TOKENS_CHECK_PROMPTS * TOKENS_CHECK_LEN
+        cfg32 = dataclasses.replace(cfg32, capacity_factor=1.001
+                                    * cfg32.n_experts / cfg32.top_k)
+        check(MOE.capacity(cfg32, t) >= t, "check capacity drops pairs")
+        rec["check_capacity_factor"] = cfg32.capacity_factor
+    _decode_vs_forward(dev, args, cfg32, rec)
+
     # (b) the reference driver's traffic through ServeEngine, bf16
-    cfg = get(TOKENS_ARCH)
+    cfg = get(arch)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=args.seed, device=dev)
     torch.cuda.synchronize()
@@ -1900,120 +1973,160 @@ def phase_tokens(dev, args, log):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    def engine_of():
+        return ServeEngine(cfg, params, max_batch=TOKENS_MAX_BATCH,
+                           max_seq=TOKENS_MAX_SEQ, device=dev)
+
     def serve():
-        engine = ServeEngine(cfg, params, max_batch=TOKENS_MAX_BATCH,
-                             max_seq=TOKENS_MAX_SEQ, device=dev)
+        engine = engine_of()
         inner, events = engine._decode, []
 
-        def timed(cache, step_toks):
+        def timed(*step_args):
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = inner(cache, step_toks)
+            out = inner(*step_args)
             ev[1].record()
             events.append(ev)
             return out
 
         engine._decode = timed
-        trng = np.random.default_rng(0)
         t0 = time.perf_counter()
-        rids = [engine.submit(
-            list(trng.integers(2, cfg.vocab, int(trng.integers(3, 10)))),
-            max_new=TOKENS_MAX_NEW) for _ in range(TOKENS_REQUESTS)]
+        rids = [engine.submit(p, max_new=TOKENS_MAX_NEW)
+                for p in _prompts(cfg)]
         outs = engine.run(max_steps=TOKENS_REQUESTS * (TOKENS_MAX_NEW + 12))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        # the example's second engine: the slot index of a live layout
-        engine2 = ServeEngine(cfg, params, max_batch=TOKENS_MAX_BATCH,
-                              max_seq=TOKENS_MAX_SEQ, device=dev)
-        for _ in range(3):
-            engine2.submit([2, 3, 4, 5], max_new=8)
-        engine2.step()
-        live = engine2.kv.slot_index()
-        live_slots = torch.arange(int(live.cum[-1]), dtype=torch.int32,
-                                  device=dev)
-        live_ids = live.lookup(live_slots)
-        # vLLM's max_num_seqs of lengths 1..8192, every flat slot a query
-        lens = np.random.default_rng(args.seed).integers(
-            1, SLOT_MAX_LEN + 1, SLOT_SEQS)
-        big = LearnedSlotIndex(np.concatenate([[0], np.cumsum(lens)]))
-        big_slots = torch.arange(int(big.cum[-1]), dtype=torch.int32,
+        live = _live_slot_index(engine_of)
+        big = None
+        if phase == "tokens":
+            # vLLM's max_num_seqs of lengths 1..8192, every flat slot
+            lens = np.random.default_rng(args.seed).integers(
+                1, SLOT_MAX_LEN + 1, SLOT_SEQS)
+            idx = LearnedSlotIndex(np.concatenate([[0], np.cumsum(lens)]))
+            slots = torch.arange(int(idx.cum[-1]), dtype=torch.int32,
                                  device=dev)
-        big_ids = big.lookup(big_slots)
-        return (engine, rids, outs, wall, events, live, live_slots, live_ids,
-                big, big_slots, big_ids)
+            big = (idx, slots, idx.lookup(slots))
+        return engine, rids, outs, wall, events, live, big
 
-    (engine, rids, outs, wall, events, live, live_slots, live_ids, big,
-     big_slots, big_ids), counts = driven(serve)
+    (engine, rids, outs, wall, events, live, big), counts = driven(serve)
     step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    recurrent = T.recurrent_state(engine.cache)
     # the same step captured as one CUDA graph: its replay is the step's
     # device time without the host's gaps between eager launches
     gcache = M.init_cache(cfg, TOKENS_MAX_BATCH, TOKENS_MAX_SEQ, dev)
     gcache["len"].fill_(TOKENS_MAX_SEQ // 2)
     gtoks = torch.full((TOKENS_MAX_BATCH, 1), 7, dtype=torch.int32,
                        device=dev)
+    gactive = torch.ones(TOKENS_MAX_BATCH, dtype=torch.bool, device=dev)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.inference_mode():
+        snapshot = [t.clone() for t, _ in T.recurrent_state(gcache)]
         with torch.cuda.stream(side):
-            eager, _ = M.decode_step(cfg, params, gcache, gtoks)
+            eager, _ = M.decode_step(cfg, params, gcache, gtoks, gactive)
         torch.cuda.current_stream().wait_stream(side)
+        for (t, _), s in zip(T.recurrent_state(gcache), snapshot):
+            t.copy_(s)                    # the replay starts from the same state
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            replayed, _ = M.decode_step(cfg, params, gcache, gtoks)
+            replayed, _ = M.decode_step(cfg, params, gcache, gtoks, gactive)
     graph.replay()
     torch.cuda.synchronize()
-    check(torch.equal(replayed, eager), "decode step: graph replay differs "
-          "from the eager step")
+    check(torch.equal(replayed, eager), f"{phase}: decode step: graph "
+          "replay differs from the eager step")
     graph_ms = cuda_ms(graph.replay)
     n_tok = sum(len(v) for v in outs.values())
     kv_bytes = sum(t.numel() * t.element_size()
-                   for t in engine.cache["blocks"]["sub0"].values())
-    step_bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+                   for name, sub in engine.cache.items() if name != "len"
+                   for c in (sub.values() if name == "blocks" else (sub,))
+                   for k, t in c.items() if k in ("k", "v"))
+    state_bytes = sum(t.numel() * t.element_size() for t, _ in recurrent)
+    # every weight and the KV cache read once, the recurrent state read
+    # and written
+    step_bound_ms = ((weight_bytes + kv_bytes + 2 * state_bytes)
+                     / HBM_BYTES_PER_S * 1e3)
     rec.update(
         requests=TOKENS_REQUESTS, max_new=TOKENS_MAX_NEW,
         max_batch=TOKENS_MAX_BATCH, max_seq=TOKENS_MAX_SEQ,
-        tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
-        decode_steps=len(step_ms),
+        layers=cfg.n_layers, tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall, decode_steps=len(step_ms),
         step_ms_p50=float(np.percentile(step_ms, 50)),
         step_ms_p99=float(np.percentile(step_ms, 99)),
         step_ms_mean=float(step_ms.mean()),
         step_bound_ms=step_bound_ms, step_graph_replay_ms=graph_ms,
         idle_share_of_step=1 - graph_ms / float(np.median(step_ms)),
-        weight_bytes=weight_bytes,
-        kv_bytes=kv_bytes, peak_mem_gb=torch.cuda.max_memory_allocated()
-        / 1e9, launches=counts,
-        outputs={str(r): outs[r] for r in rids})
+        weight_bytes=weight_bytes, kv_bytes=kv_bytes,
+        recurrent_state_bytes=state_bytes,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, outputs={str(r): outs[r] for r in rids})
     check(n_tok == TOKENS_REQUESTS * TOKENS_MAX_NEW
           and all(len(outs[r]) == TOKENS_MAX_NEW for r in rids)
           and all(0 <= t < cfg.vocab for r in rids for t in outs[r]),
-          f"engine emitted {n_tok} tokens")
+          f"{phase}: engine emitted {n_tok} tokens")
     check(counts["bounded_search"] >= 1,
-          "the slot index launched no bounded_search kernel")
+          f"{phase}: the slot index launched no bounded_search kernel")
+    if cfg.n_experts:
+        # the paper's operation inside the MoE step: both searchsorted
+        # calls of a sorted dispatch at the step's shape, once per layer
+        j = TOKENS_MAX_BATCH * cfg.top_k
+        e_sorted = torch.sort(torch.randint(
+            0, cfg.n_experts, (1, j), device=dev)).values
+        experts = torch.arange(cfg.n_experts, device=dev)[None]
+        ss_ms = cuda_ms_queued(lambda: (
+            torch.searchsorted(e_sorted, experts),
+            torch.searchsorted(e_sorted, experts, right=True)))
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        rec.update(searchsorted_ms_per_layer=ss_ms, moe_layers=n_moe,
+                   searchsorted_share_of_graph_step=ss_ms * n_moe / graph_ms)
+    if recurrent:
+        # each request served on its own through the same engine shape:
+        # its tokens must be the batched run's (no state leaks between
+        # slots or from a slot's last request)
+        engine1 = engine_of()
+        alone = {}
+        for rid, prompt in zip(rids, _prompts(cfg)):
+            r = engine1.submit(prompt, max_new=TOKENS_MAX_NEW)
+            alone[rid] = engine1.run()[r]
+        rec["alone_equals_batched"] = all(alone[r] == outs[r] for r in rids)
+        check(rec["alone_equals_batched"], f"{phase}: a request's tokens "
+              f"served alone differ from the batched run's: {alone}")
 
     # (c) the slot index: cuda against its plain version and numpy
-    errs = 0
-    for name, idx, slots, ids in (("live", live, live_slots, live_ids),
-                                  ("vllm_256", big, big_slots, big_ids)):
-        plain = idx.lookup(slots.cpu())
-        want = np.searchsorted(idx.cum, slots.cpu().numpy(), "right") - 1
-        e = diff(ids.cpu(), plain)
-        wrong = int((ids.cpu().numpy() != want).sum())
-        errs = max(errs, e)
-        rec[f"slot_index_{name}"] = {
-            "n_req": idx.n_req, "slots": slots.shape[0], "err": idx.err,
-            "max_width": 2 * idx.err + 2, "max_abs_err_vs_plain": e,
-            "wrong_vs_searchsorted": wrong}
-        check(e == 0 and wrong == 0, f"slot index ({name}): {e} vs plain, "
-              f"{wrong} wrong vs np.searchsorted")
+    errs = _check_slot_index(rec, "live", *live)
+    kernel = None
+    if big is not None:
+        errs = max(errs, _check_slot_index(rec, "vllm_256", *big))
+        kernel = _b1_int32_timing(rec, big, counts, errs)
+    emit(rec, log)
+    del engine, params, graph, gcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, kernel
 
-    # B1 on the timing layout's int32 inputs, as `lookup` gives them
-    cum = torch.from_numpy(big.cum.astype(np.int32)).to(dev)
-    q = big_slots + 1
-    pred = big_slots.float() * torch.tensor(np.float32(big.slope),
-                                            device=dev)
-    lo = torch.clamp(pred.to(torch.int32) - big.err, 0, big.n_req)
-    width = 2 * big.err + 2
+
+def _prompts(cfg):
+    """The reference driver's prompts (src/repro/launch/serve.py:54-71)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [list(rng.integers(2, cfg.vocab, int(rng.integers(3, 10))))
+            for _ in range(TOKENS_REQUESTS)]
+
+
+def _b1_int32_timing(rec, big, counts, errs):
+    """B1 on the timing layout's int32 inputs, as `lookup` gives them;
+    returns its ``kernels`` line entry."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bounded_search import ops as bops
+
+    idx, slots, _ = big
+    dev = slots.device
+    cum = torch.from_numpy(idx.cum.astype(np.int32)).to(dev)
+    q = slots + 1
+    pred = slots.float() * torch.tensor(np.float32(idx.slope), device=dev)
+    lo = torch.clamp(pred.to(torch.int32) - idx.err, 0, idx.n_req)
+    width = 2 * idx.err + 2
     m = q.shape[0]
     _, count = bops.clip_windows(cum.shape[0], lo, width)
     n_probes = int(bops.window_probes(count).sum())
@@ -2022,9 +2135,9 @@ def phase_tokens(dev, args, log):
            "b1_int32_plain": lambda: bops.lower_bound_windows_plain(
                cum, q, lo, width),
            "torch_searchsorted": lambda: torch.searchsorted(cum, q),
-           "lookup": lambda: big.lookup(big_slots),
+           "lookup": lambda: idx.lookup(slots),
            "searchsorted_right_minus_1": lambda: torch.searchsorted(
-               cum, big_slots, right=True) - 1}
+               cum, slots, right=True) - 1}
     # device time (queued behind a sleep) and the host-paced time of
     # back-to-back calls, in turns
     timing = {f"{k}_ms": [] for k in fns}
@@ -2033,23 +2146,66 @@ def phase_tokens(dev, args, log):
         timing[f"{k}_ms"].append(cuda_ms_queued(fns[k]))
         timing[f"{k}_host_paced_ms"].append(cuda_ms(fns[k]))
     timing = {k: sum(v) / len(v) for k, v in timing.items()}
-    kernel_ms, plain_ms = timing["b1_int32_ms"], timing["b1_int32_plain_ms"]
-    library_ms = timing["torch_searchsorted_ms"]
     rec["slot_index_timing"] = {
         **timing, "b1_int32_bound_ms": b_ms, "b1_int32_bound_by": b_by,
         "probes": n_probes, "queries": m}
-    emit(rec, log)
-    kernel = {
+    return {
         "name": "bounded_search_int32", "route": "cuda",
         "source": KERNEL_SOURCES["bounded_search"][0],
         "replaces": KERNEL_SOURCES["bounded_search"][1],
         "launches": counts["bounded_search"], "max_abs_err": errs,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": library_ms}
-    del engine, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return rec, kernel
+        "ms": timing["b1_int32_ms"], "plain_ms": timing["b1_int32_plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timing["torch_searchsorted_ms"]}
+
+
+def phase_smoke_engines(dev, log):
+    """The configs that do not fit one card (jamba-1.5-large-398b, the only
+    hybrid, and mixtral-8x22b), at their smoke widths: the engine on the
+    card in float32 (TF32 off) against the same engine on the CPU, token
+    for token, over `tests/test_torch_serve_tokens.py`'s traffic, and the
+    slot index of a live layout; returns the records."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in SMOKE_ENGINE_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        rec = {"phase": "tokens_smoke", "arch": cfg.name}
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        gpu = M.init_params(cfg, seed=0, device="cpu").to(dev)
+
+        def engine_of(params=gpu, where=dev):
+            return ServeEngine(cfg, params, max_batch=4, max_seq=96,
+                               page_size=8, device=where)
+
+        def serve(params, where):
+            eng = engine_of(params, where)
+            rng = np.random.default_rng(0)
+            for _ in range(6):
+                eng.submit(list(rng.integers(2, cfg.vocab,
+                                             rng.integers(3, 9))), max_new=6)
+            return eng.run(max_steps=64)
+
+        want = serve(cpu, "cpu")
+        (got, live), counts = driven(lambda: (serve(gpu, dev),
+                                              _live_slot_index(engine_of)))
+        rec.update(tokens_equal_cpu=got == want, outputs=got,
+                   launches=counts)
+        check(got == want and len(got) == 6,
+              f"{arch} smoke engine on the card differs from the CPU's")
+        check(counts["bounded_search"] >= 1,
+              f"{arch}: the slot index launched no bounded_search kernel")
+        _check_slot_index(rec, "live", *live)
+        emit(rec, log)
+        out[arch] = rec
+    return out
 
 
 def phase_driver(log):
@@ -2058,8 +2214,9 @@ def phase_driver(log):
     executor), with ``--metrics-jsonl`` (the file it writes is parsed),
     with ``--executor sync``, routed with ``--shards 2 --replicas 2``, and
     with ``--autotune-daemon --autotune-store`` (a temporary directory);
-    then in token mode at granite-3-2b's full width (no ``--smoke``), 8
-    requests of 8 new tokens.  Each must exit 0."""
+    then in token mode at the full width (no ``--smoke``) of each token
+    phase's arch (granite-3-2b, deepseek-moe-16b, mamba2-2.7b), 8 requests
+    of 8 new tokens.  Each must exit 0."""
     import tempfile
 
     from repro_torch.configs import get
@@ -2081,9 +2238,9 @@ def phase_driver(log):
             "routed": [*lookup, "--shards", "2", "--replicas", "2"],
             "autotune": [*lookup, "--autotune-daemon", "--autotune-store",
                          store],
-            "tokens": ["--mode", "tokens", "--arch", TOKENS_ARCH,
-                       "--requests", str(TOKENS_REQUESTS), "--max-new",
-                       str(TOKENS_MAX_NEW)]}
+            **{phase: ["--mode", "tokens", "--arch", arch, "--requests",
+                       str(TOKENS_REQUESTS), "--max-new", str(TOKENS_MAX_NEW)]
+               for phase, (arch, _) in TOKEN_PHASES.items()}}
     out = {}
     for label, extra in runs.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", *extra]
@@ -2103,12 +2260,13 @@ def phase_driver(log):
         emit(rec, log)
         check(res.returncode == 0, f"serve driver ({label}) exited "
               f"{res.returncode}")
-        if label == "tokens":
+        if label in TOKEN_PHASES:
+            arch = TOKEN_PHASES[label][0]
             n_tok = TOKENS_REQUESTS * TOKENS_MAX_NEW
-            check(f"serving {TOKENS_ARCH} ({get(TOKENS_ARCH).n_layers} "
+            check(f"serving {arch} ({get(arch).n_layers} "
                   "layers" in res.stdout and f"{n_tok} tokens for "
                   f"{TOKENS_REQUESTS} requests" in res.stdout,
-                  "serve driver (tokens) did not serve the full model")
+                  f"serve driver ({label}) did not serve the full model")
             out[label] = rec
             continue
         executor = "sync" if label == "sync" else "async"
@@ -2199,7 +2357,17 @@ def main(argv=None) -> int:
         del cell
         gc.collect()
         torch.cuda.empty_cache()
-    tokens, b1_int32 = phase_tokens(dev, args, log)
+    tokens = {}
+    for phase in TOKEN_PHASES:
+        tokens[phase], kernel = phase_tokens(dev, args, log, phase)
+        if kernel is not None:
+            b1_int32 = kernel
+    tokens["smoke"] = phase_smoke_engines(dev, log)
+    # B1 int32's launches over every token phase's main path
+    b1_int32["launches"] = sum(
+        rec["launches"]["bounded_search"]
+        for rec in [*(tokens[p] for p in TOKEN_PHASES),
+                    *tokens["smoke"].values()])
     driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
     for k in kernels:

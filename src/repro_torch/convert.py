@@ -133,19 +133,25 @@ def decoder_from_reference(cfg: ModelConfig, params_np,
 
     ``params_np`` is the reference's ``init_params`` tree with every leaf
     as numpy; bf16 leaves come as float32 (exact) and are cast back to
-    the parameter's type here.  The leading layer axis that the
-    reference's ``vmap`` gives ``params["blocks"]["sub0"]`` is unstacked
-    into ``blocks[i]``.  Every parameter must be in the tree, and every
-    leaf of the tree must be used.
+    the parameter's type here.  The prologue's ``pro{i}`` becomes
+    ``pro[i]``; the leading layer axis that the reference's ``vmap`` gives
+    each ``params["blocks"][f"sub{j}"]`` is unstacked into ``blocks[i * U
+    + j]`` for a unit of ``U`` blocks.  Every parameter must be in the
+    tree, and every leaf of the tree must be used.
     """
     dev = resolve_device(device)
     model = transformer.Decoder(cfg, device="meta")
+    u = model.unit_len
     state, used = {}, 0
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
-            arr = np.asarray(params_np["blocks"]["sub0"][parts[2]][parts[3]],
-                             np.float32)[int(parts[1])]
+            i, j = divmod(int(parts[1]), u)
+            arr = np.asarray(params_np["blocks"][f"sub{j}"][parts[2]][parts[3]],
+                             np.float32)[i]
+        elif parts[0] == "pro":
+            arr = np.asarray(params_np[f"pro{parts[1]}"][parts[2]][parts[3]],
+                             np.float32)
         else:
             arr = np.asarray(params_np[parts[0]][parts[1]], np.float32)
         state[name] = torch.from_numpy(np.array(arr)).to(device=dev,

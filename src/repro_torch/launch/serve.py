@@ -8,8 +8,9 @@ batching engine, greedy decoding, weights drawn from a seed):
         --requests 8 --max-new 8
 
 runs at the architecture's full width on the CUDA card; ``--smoke`` takes
-its reduced config and ``--device cpu`` asks for the CPU.  The dense and
-vlm families are ported; the others exit 2 naming ROADMAP item 13.
+its reduced config and ``--device cpu`` asks for the CPU.  Every decoder
+family is ported (dense, vlm, moe, ssm, hybrid); whisper-tiny (encdec)
+exits 2 naming ROADMAP item 13.
 
 Lookup mode:
 

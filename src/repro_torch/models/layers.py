@@ -184,10 +184,17 @@ def attention_kv(cfg: ModelConfig, p, x, positions, cache_k, cache_v,
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+def silu(x):
+    """``x * (1 / (1 + exp(-x)))``, each step rounded to ``x``'s type, as
+    ``jax.nn.silu`` lowers: in bf16 `F.silu`, which rounds once, differs
+    from it by an ulp on ~40% of inputs."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def mlp(cfg: ModelConfig, p, x):
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.act == "swiglu":
-        h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
+        h = silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
     return torch.einsum("bsf,fd->bsd", h, p["wo"])

@@ -2,12 +2,13 @@
 
   init_params(cfg, seed, device)      the `Decoder` module, weights from a seed
   forward(cfg, params, batch)         logits + aux (prefill)
-  loss_fn(cfg, params, batch)         scalar next-token loss (forward only)
+  loss_fn(cfg, params, batch)         scalar next-token loss + MoE aux
+                                      (forward only)
   decode_step(cfg, params, cache, t)  one-token serve step
   cache_shapes / init_cache           decode-state shapes (meta) / zeros
 
-Only the dense and vlm families are ported; the others raise
-`NotImplementedError` naming ROADMAP item 13.  ``param_specs``,
+Every decoder family is ported (dense, vlm, moe, ssm, hybrid); encdec
+raises `NotImplementedError` naming ROADMAP item 13.  ``param_specs``,
 ``cache_specs`` and ``input_specs`` are the reference's sharding and
 dry-run surface and wait for the port's ``dist/``.
 """
@@ -36,7 +37,7 @@ def forward(cfg: ModelConfig, params: T.Decoder, batch):
 
 
 def loss_fn(cfg: ModelConfig, params: T.Decoder, batch):
-    """Next-token cross entropy (+ aux) with float32 logits math."""
+    """Next-token cross entropy (+ MoE aux) with float32 logits math."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
     logits = logits.float()
@@ -48,8 +49,11 @@ def loss_fn(cfg: ModelConfig, params: T.Decoder, batch):
     return loss + aux
 
 
-def decode_step(cfg: ModelConfig, params: T.Decoder, cache, tokens):
-    return T.decoder_decode(cfg, params, cache, tokens)
+def decode_step(cfg: ModelConfig, params: T.Decoder, cache, tokens,
+                active=None):
+    """One token a row; ``active`` (bool ``[B]``) limits which rows'
+    recurrent state advances (`transformer.decoder_decode`)."""
+    return T.decoder_decode(cfg, params, cache, tokens, active)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
@@ -59,10 +63,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device=None):
     """A zeroed decode cache on ``device`` (``None``: the CUDA card)."""
     dev = resolve_device(device)
-    sh = cache_shapes(cfg, batch, s_max)
-    kv = sh["blocks"]["sub0"]
-    return {"blocks": {"sub0": {
-                k: torch.zeros(t.shape, dtype=t.dtype, device=dev)
-                for k, t in kv.items()}},
-            "len": torch.zeros(sh["len"].shape, dtype=torch.int32,
-                               device=dev)}
+
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+
+    return zeros(cache_shapes(cfg, batch, s_max))

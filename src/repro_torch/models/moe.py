@@ -1,0 +1,176 @@
+"""Mixture-of-Experts FFN with the sorted (learned-index style) dispatch.
+
+The reference's `repro.models.moe` in plain torch, forward only (the port
+serves; the reference's gather-only custom VJPs are training's, ROADMAP
+item 13).  Dispatch modes (``cfg.moe_dispatch``):
+
+  dense    every expert runs every token and the router's weights select
+           the outputs: E/k times the useful work, the baseline.
+  sorted   sort the (token, choice) pairs by expert id, find each expert's
+           segment with ``lower_bound(sorted_ids, e)`` (the paper's
+           operation, here `torch.searchsorted`), gather the tokens into
+           ``[E, C]`` capacity slots and run one batched product a weight
+           stack.  Pairs past an expert's capacity ``C`` are dropped.
+
+Both share the router and its losses (Switch load balance + router z).
+
+Ties.  The reference's ``jnp.argsort`` is stable, so pairs routed to one
+expert keep token order and, under capacity, the earliest tokens are
+kept; the port sorts with ``stable=True`` for the same choice.
+``lax.top_k`` gives exact ties in the router's probabilities to the lower
+expert id; ``torch.topk`` promises no order for ties, so the port takes
+its top k from a stable descending sort, which gives them to the lower id
+too.
+
+Groups.  The reference dispatches per data shard; with no mesh that is
+one group (`repro.dist.sharding.dispatch_groups`), and the port, which
+has no mesh yet, always uses one.  Its sharding annotations have no
+counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import silu
+
+
+def init_moe(cfg: ModelConfig, init) -> nn.ParameterDict:
+    """The reference's ``init_moe`` shapes and scales (the router in
+    float32); ``init`` is the decoder's initialiser
+    (`transformer._Init`)."""
+    d, h, e = cfg.d_model, cfg.moe_hidden, cfg.n_experts
+    s_in, s_out = d ** -0.5, h ** -0.5
+    p = {"router": init.normal((d, e), s_in, torch.float32),
+         "wi": init.normal((e, d, h), s_in),
+         "wg": init.normal((e, d, h), s_in),
+         "wo": init.normal((e, h, d), s_out)}
+    if cfg.n_shared_experts:
+        hs = h * cfg.n_shared_experts
+        p.update(shared_wi=init.normal((d, hs), s_in),
+                 shared_wg=init.normal((d, hs), s_in),
+                 shared_wo=init.normal((hs, d), s_out))
+    return nn.ParameterDict(p)
+
+
+def _router(cfg: ModelConfig, p, x):
+    """x [T, d] -> (top-k probs [T, k], top-k ids [T, k] int64, aux)."""
+    logits = torch.einsum("td,de->te", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    # Switch load-balance loss: E * sum_e f_e * p_e, on the first choice
+    e = cfg.n_experts
+    f = F.one_hot(top_i[:, 0], e).float().mean(0)
+    aux = e * torch.sum(f * probs.mean(0)) * cfg.aux_loss_coef
+    z = torch.logsumexp(logits, dim=-1).square().mean() * cfg.router_z_coef
+    return top_p, top_i, aux + z
+
+
+def _expert_ffn(cfg: ModelConfig, p, xs):
+    """xs [G, E, C, d] -> [G, E, C, d]: one batched product a stack."""
+    h = torch.einsum("gecd,edf->gecf", xs, p["wi"])
+    g = torch.einsum("gecd,edf->gecf", xs, p["wg"])
+    return torch.einsum("gecf,efd->gecd", silu(g) * h, p["wo"])
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots an expert holds for a group of ``tokens`` (the reference's
+    rounding: the factor's share, up to a multiple of 8, at least 8)."""
+    cap = int(cfg.capacity_factor * tokens * cfg.top_k / cfg.n_experts)
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _rows(x, index):
+    """``x[g, index[g, j]]`` for x [G, N, D] and index [G, J]."""
+    return torch.gather(x, 1, index[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def sorted_dispatch_plan(cfg: ModelConfig, top_i):
+    """The sorted dispatch's index arithmetic for top-k ids ``[T, k]``
+    (one group): a dict of ``order``, ``inv_perm``, ``e_sorted``,
+    ``tok_sorted``, ``seg_start``, ``keep``, ``flat_slot``, ``inv_slot``
+    (each ``[1, ...]``) and ``cap``."""
+    t, k = top_i.shape
+    e, j = cfg.n_experts, t * k
+    cap = capacity(cfg, t)
+    dev = top_i.device
+    eg = top_i.reshape(1, j)
+    order = torch.argsort(eg, dim=-1, stable=True)    # sort pairs by expert
+    inv_perm = torch.argsort(order, dim=-1)           # a permutation: no ties
+    e_sorted = torch.gather(eg, -1, order)
+    tok_sorted = order // k                           # token of sorted entry
+    # the paper's operation: segment starts = lower_bound(e_sorted, e)
+    experts = torch.arange(e, device=dev).expand(1, e).contiguous()
+    seg_start = torch.searchsorted(e_sorted, experts)
+    seg_end = torch.searchsorted(e_sorted, experts, right=True)
+    pos_in_seg = (torch.arange(j, device=dev)[None]
+                  - torch.gather(seg_start, -1, e_sorted))
+    keep = pos_in_seg < cap
+    flat_slot = torch.where(
+        keep, e_sorted * cap + torch.clamp(pos_in_seg, max=cap - 1), 0)
+    # slot -> sorted position, arithmetically (j marks an empty slot)
+    islot = seg_start[:, :, None] + torch.arange(cap, device=dev)[None, None]
+    valid = islot < torch.minimum(seg_end, seg_start + cap)[:, :, None]
+    inv_slot = torch.where(valid, islot, j).reshape(1, e * cap)
+    return dict(order=order, inv_perm=inv_perm, e_sorted=e_sorted,
+                tok_sorted=tok_sorted, seg_start=seg_start, keep=keep,
+                flat_slot=flat_slot, inv_slot=inv_slot, cap=cap)
+
+
+def _dispatch_sorted(cfg: ModelConfig, p, x2d):
+    """Sort-by-expert dispatch with capacity."""
+    t, d = x2d.shape
+    e, k = cfg.n_experts, cfg.top_k
+    top_p, top_i, aux = _router(cfg, p, x2d)
+    plan = sorted_dispatch_plan(cfg, top_i)
+    cap = plan["cap"]
+    p_sorted = torch.gather(top_p.reshape(1, t * k), -1, plan["order"])
+    keep = plan["keep"][..., None]
+
+    # dispatch: tokens -> sorted -> slots, a zero row for the empty slots
+    xs_sorted = _rows(x2d.reshape(1, t, d), plan["tok_sorted"])
+    xs_pad = F.pad(xs_sorted, (0, 0, 0, 1))
+    xs = _rows(xs_pad, plan["inv_slot"]).reshape(1, e, cap, d)
+
+    ys = _expert_ffn(cfg, p, xs)
+
+    # combine: slots -> sorted (weighted, dropped rows zero) -> tokens
+    ys_sorted = _rows(ys.reshape(1, e * cap, d), plan["flat_slot"])
+    ys_sorted = ys_sorted * keep.to(ys_sorted.dtype)
+    ys_sorted = ys_sorted * p_sorted[..., None].to(ys_sorted.dtype)
+    out = _rows(ys_sorted, plan["inv_perm"]).reshape(t, k, d).sum(1)
+    return out, aux
+
+
+def _dispatch_dense(cfg: ModelConfig, p, x2d):
+    """Baseline: every expert computes every token; mask-combine."""
+    t, d = x2d.shape
+    e = cfg.n_experts
+    top_p, top_i, aux = _router(cfg, p, x2d)
+    xs = x2d.reshape(1, 1, t, d).expand(1, e, t, d)
+    ys = _expert_ffn(cfg, p, xs)[0]                   # [E, T, d]
+    combine = torch.zeros((t, e), dtype=torch.float32, device=x2d.device)
+    combine.scatter_(1, top_i, top_p)                 # [T, E]
+    out = torch.einsum("etd,te->td", ys, combine.to(ys.dtype))
+    return out, aux
+
+
+def moe_ffn(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (out [B, S, d], aux loss, a float32 scalar)."""
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    if cfg.moe_dispatch == "dense":
+        out, aux = _dispatch_dense(cfg, p, x2d)
+    else:
+        out, aux = _dispatch_sorted(cfg, p, x2d)
+    if cfg.n_shared_experts:
+        h = torch.einsum("td,df->tf", x2d, p["shared_wi"])
+        g = torch.einsum("td,df->tf", x2d, p["shared_wg"])
+        out = out + torch.einsum("tf,fd->td", silu(g) * h, p["shared_wo"])
+    return out.reshape(b, s, d), aux

@@ -1,22 +1,32 @@
-"""The decoder stack for the dense and vlm families, as an ``nn.Module``.
+"""The decoder stack for every decoder family, as an ``nn.Module``.
 
 The reference (`repro.models.transformer`) composes every family from one
-block, a mixer (attention or SSD) and an FFN (dense or MoE), and scans
-over a stack of identical units.  The dense and vlm families are L
-identical (attention, dense FFN) blocks; here each is a `Block` in a
-``ModuleList``, and the scan is a loop.  The other families (moe, ssm,
-hybrid, encdec) raise `NotImplementedError`: they wait for ROADMAP
-item 13.
+block, a mixer (attention or SSD) and an FFN (dense, MoE or none), and
+stacks them by a plan (`stack_plan`): a prologue of unrolled blocks, then
+a unit of blocks scanned ``n_scan`` times.
 
-Parameters are keyed as the reference's tree is, with the leading layer
-axis of ``params["blocks"]["sub0"]`` unstacked into ``blocks[i]``
-(`repro_torch.convert.decoder_from_reference`).  Weights are made with an
-explicit ``torch.Generator`` at the reference's scales; they need no
-gradient (the port serves; training is a later slice).
+  dense, vlm        L identical (attn, dense) blocks
+  moe (mixtral)     L identical (attn, moe) blocks
+  moe (deepseek)    layer 0 unrolled (attn, wide dense), then (attn, moe)
+  ssm (mamba2)      L (ssd, none) blocks
+  hybrid (jamba)    L/period units of [attn, ssd x (period-1)], MoE on
+                    the layers `is_moe_layer` names
 
-The decode cache mirrors the reference's tree: ``{"blocks": {"sub0":
-{"k", "v"}}, "len"}`` with k/v ``[L, B, S_max, n_kv, hd]`` and ``len``
-int32 ``[B]``.
+Here each block is a `Block`, the prologue is ``pro[i]`` and the scanned
+units are flattened, in layer order, into ``blocks``: block ``i * U + j``
+is the reference's ``params["blocks"][f"sub{j}"]`` at layer-axis index
+``i`` for a unit of ``U`` blocks (`repro_torch.convert.
+decoder_from_reference`).  The scan is a loop.  The encdec family raises
+`NotImplementedError`: it waits for ROADMAP item 13.  Weights are made
+with an explicit ``torch.Generator`` at the reference's scales; they need
+no gradient (the port serves; training is a later slice).
+
+The decode cache mirrors the reference's tree: ``{"blocks": {"sub{j}":
+...}, "pro{i}": ..., "len"}``, where an attention block holds ``k``/``v``
+``[B, S_max, n_kv, hd]`` and an SSD block ``ssm`` (float32 ``[B, H, N,
+P]``) and ``conv`` (``[B, K-1, d_inner + 2N]``), each with a leading
+``n_scan`` axis under ``blocks``; ``len`` is int32 ``[B]``.  A decode
+step writes every one of them in place.
 """
 from __future__ import annotations
 
@@ -26,19 +36,33 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as S
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
-SUPPORTED_FAMILIES = ("dense", "vlm")
+SUPPORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def stack_plan(cfg: ModelConfig):
-    """``(prologue, scan_unit, n_scan)`` as in the reference; only the
-    dense and vlm families' plan is ported."""
-    if (cfg.family not in SUPPORTED_FAMILIES or cfg.n_experts
-            or cfg.hybrid_period):
+    """``(prologue, scan_unit, n_scan)`` as in the reference: lists of
+    ``(mixer, ffn, d_ff)``."""
+    if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP item 13); the port runs {SUPPORTED_FAMILIES}")
+    if cfg.family == "ssm":
+        return [], [("ssm", "none", 0)], cfg.n_layers
+    if cfg.hybrid_period:
+        unit = [("attn" if j == 0 else "ssm",
+                 "moe" if cfg.is_moe_layer(j) else "dense", 0)
+                for j in range(cfg.hybrid_period)]
+        assert cfg.n_layers % cfg.hybrid_period == 0
+        return [], unit, cfg.n_layers // cfg.hybrid_period
+    if cfg.n_experts and cfg.dense_first_layer:
+        return ([("attn", "dense", cfg.dense_first_d_ff)],
+                [("attn", "moe", 0)], cfg.n_layers - 1)
+    if cfg.n_experts:
+        return [], [("attn", "moe", 0)], cfg.n_layers
     return [], [("attn", "dense", 0)], cfg.n_layers
 
 
@@ -47,7 +71,8 @@ def stack_plan(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 class _Init:
     """Draws the reference's initial values: ``N(0, 1) * scale`` in
-    float32, cast to the model's type; empty tensors on the meta device."""
+    float32, cast to the model's type (or ``dtype``); empty tensors on the
+    meta device."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  device: torch.device):
@@ -57,12 +82,13 @@ class _Init:
     def _param(self, t: torch.Tensor) -> nn.Parameter:
         return nn.Parameter(t, requires_grad=False)
 
-    def normal(self, shape, scale: float) -> nn.Parameter:
+    def normal(self, shape, scale: float, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.dtype
         if self.device.type == "meta":
-            return self._param(torch.empty(shape, dtype=self.dtype,
+            return self._param(torch.empty(shape, dtype=dtype,
                                            device=self.device))
         t = torch.randn(shape, generator=self.gen, device=self.device)
-        return self._param((t * scale).to(self.dtype))
+        return self._param((t * scale).to(dtype))
 
     def fill(self, shape, value: float, dtype=None) -> nn.Parameter:
         return self._param(torch.full(shape, value, device=self.device,
@@ -76,54 +102,104 @@ def _norm_params(cfg: ModelConfig, init: _Init) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
+def _attn_params(cfg: ModelConfig, init: _Init) -> nn.ParameterDict:
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    s = d ** -0.5
+    attn = {"wq": init.normal((d, nh, hd), s),
+            "wk": init.normal((d, nkv, hd), s),
+            "wv": init.normal((d, nkv, hd), s),
+            "wo": init.normal((nh, hd, d), s)}
+    if cfg.qkv_bias:
+        attn.update(bq=init.fill((nh, hd), 0.0),
+                    bk=init.fill((nkv, hd), 0.0),
+                    bv=init.fill((nkv, hd), 0.0))
+    if cfg.qk_norm:
+        attn.update(q_norm=init.fill((hd,), 1.0, torch.float32),
+                    k_norm=init.fill((hd,), 1.0, torch.float32))
+    return nn.ParameterDict(attn)
+
+
+def _mlp_params(cfg: ModelConfig, init: _Init, f: int) -> nn.ParameterDict:
+    d = cfg.d_model
+    mlp = {"wi": init.normal((d, f), d ** -0.5)}
+    if cfg.act == "swiglu":
+        mlp["wg"] = init.normal((d, f), d ** -0.5)
+    mlp["wo"] = init.normal((f, d), f ** -0.5)
+    return nn.ParameterDict(mlp)
+
+
+def _commit(dst: torch.Tensor, new: torch.Tensor, active):
+    """Write a decode step's new recurrent state into ``dst`` in place;
+    with ``active`` (bool ``[B]``), only the active rows take it."""
+    if active is not None:
+        new = torch.where(active.view(-1, *([1] * (new.dim() - 1))), new, dst)
+    dst.copy_(new)
+
+
 class Block(nn.Module):
-    """One (attention, dense FFN) layer: ``norm1``, ``attn``, ``norm2``
-    and ``mlp`` hold the reference block's parameter dicts."""
+    """One layer, a mixer and an FFN: ``norm1`` and ``attn`` or ``ssm``,
+    then, unless the FFN is ``"none"``, ``norm2`` and ``mlp`` or ``moe``,
+    each holding the reference block's parameter dict."""
 
-    def __init__(self, cfg: ModelConfig, init: _Init, d_ff: int = 0):
+    def __init__(self, cfg: ModelConfig, init: _Init, mixer: str = "attn",
+                 ffn: str = "dense", d_ff: int = 0):
         super().__init__()
-        d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        f = d_ff or cfg.d_ff
-        s = d ** -0.5
+        self.mixer, self.ffn = mixer, ffn
         self.norm1 = _norm_params(cfg, init)
-        attn = {"wq": init.normal((d, nh, hd), s),
-                "wk": init.normal((d, nkv, hd), s),
-                "wv": init.normal((d, nkv, hd), s),
-                "wo": init.normal((nh, hd, d), s)}
-        if cfg.qkv_bias:
-            attn.update(bq=init.fill((nh, hd), 0.0),
-                        bk=init.fill((nkv, hd), 0.0),
-                        bv=init.fill((nkv, hd), 0.0))
-        if cfg.qk_norm:
-            attn.update(q_norm=init.fill((hd,), 1.0, torch.float32),
-                        k_norm=init.fill((hd,), 1.0, torch.float32))
-        self.attn = nn.ParameterDict(attn)
-        self.norm2 = _norm_params(cfg, init)
-        mlp = {"wi": init.normal((d, f), s)}
-        if cfg.act == "swiglu":
-            mlp["wg"] = init.normal((d, f), s)
-        mlp["wo"] = init.normal((f, d), f ** -0.5)
-        self.mlp = nn.ParameterDict(mlp)
+        if mixer == "attn":
+            self.attn = _attn_params(cfg, init)
+        else:
+            self.ssm = S.init_mamba(cfg, init)
+        if ffn != "none":
+            self.norm2 = _norm_params(cfg, init)
+        if ffn == "dense":
+            self.mlp = _mlp_params(cfg, init, d_ff or cfg.d_ff)
+        elif ffn == "moe":
+            self.moe = MOE.init_moe(cfg, init)
 
-    def forward(self, cfg: ModelConfig, x, positions, causal: bool = True):
-        x = x + L.attention(cfg, self.attn, L.norm(cfg, x, self.norm1),
-                            positions, causal=causal)
-        return x + L.mlp(cfg, self.mlp, L.norm(cfg, x, self.norm2))
+    def _ffn(self, cfg: ModelConfig, x, aux):
+        if self.ffn == "none":
+            return x, aux
+        h = L.norm(cfg, x, self.norm2)
+        if self.ffn == "dense":
+            return x + L.mlp(cfg, self.mlp, h), aux
+        h, a = MOE.moe_ffn(cfg, self.moe, h)
+        return x + h, aux + a
 
-    def decode(self, cfg: ModelConfig, x, positions, k, v, cache_len):
-        h, _, _ = L.attention_kv(cfg, self.attn, L.norm(cfg, x, self.norm1),
-                                 positions, k, v, cache_len)
-        x = x + h
-        return x + L.mlp(cfg, self.mlp, L.norm(cfg, x, self.norm2))
+    def forward(self, cfg: ModelConfig, x, positions, aux,
+                causal: bool = True):
+        h = L.norm(cfg, x, self.norm1)
+        if self.mixer == "attn":
+            h = L.attention(cfg, self.attn, h, positions, causal=causal)
+        else:
+            h = S.mamba_layer(cfg, self.ssm, h)
+        return self._ffn(cfg, x + h, aux)
+
+    def decode(self, cfg: ModelConfig, x, positions, cache: Dict, cache_len,
+               active=None):
+        """One token; ``cache`` holds this block's tensors, written in
+        place (attention: at ``cache_len``; SSD: the whole state, or only
+        the ``active`` rows)."""
+        h = L.norm(cfg, x, self.norm1)
+        if self.mixer == "attn":
+            h, _, _ = L.attention_kv(cfg, self.attn, h, positions,
+                                     cache["k"], cache["v"], cache_len)
+        else:
+            h, st, cs = S.mamba_decode(cfg, self.ssm, h, cache["ssm"],
+                                       cache["conv"])
+            _commit(cache["ssm"], st, active)
+            _commit(cache["conv"], cs, active)
+        return self._ffn(cfg, x + h, 0.0)[0]
 
 
 class Decoder(nn.Module):
-    """The whole stack: ``embed`` (``tok``, and ``head`` when untied),
-    ``blocks`` and ``final_norm``."""
+    """The whole stack: ``embed`` (``tok``, and ``head`` when untied), the
+    prologue ``pro``, the scanned ``blocks`` (``unit_len`` a unit) and
+    ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        _, unit, n_scan = stack_plan(cfg)
+        pro, unit, n_scan = stack_plan(cfg)
         init = _Init(cfg, generator, torch.device(device or "cpu"))
         self.cfg = cfg
         s = cfg.d_model ** -0.5
@@ -131,8 +207,11 @@ class Decoder(nn.Module):
         if not cfg.tie_embeddings:
             emb["head"] = init.normal((cfg.d_model, cfg.vocab_padded), s)
         self.embed = nn.ParameterDict(emb)
-        self.blocks = nn.ModuleList(
-            Block(cfg, init, unit[0][2]) for _ in range(n_scan))
+        self.pro = nn.ModuleList(Block(cfg, init, *spec) for spec in pro)
+        self.unit_len = len(unit)
+        self.blocks = nn.ModuleList(Block(cfg, init, *unit[j])
+                                    for _ in range(n_scan)
+                                    for j in range(len(unit)))
         self.final_norm = _norm_params(cfg, init)
 
     def forward(self, tokens):
@@ -144,39 +223,77 @@ class Decoder(nn.Module):
 # ---------------------------------------------------------------------------
 def decoder_forward(cfg: ModelConfig, params: Decoder, tokens,
                     causal: bool = True):
-    """tokens [B, S] -> (logits [B, S, V], aux loss scalar)."""
+    """tokens [B, S] -> (logits [B, S, V], aux loss, a float32 scalar:
+    the MoE layers' sum)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = L.embed(cfg, params.embed, tokens)
-    for blk in params.blocks:
-        x = blk(cfg, x, positions, causal)
-    x = L.norm(cfg, x, params.final_norm)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for blk in (*params.pro, *params.blocks):
+        x, aux = blk(cfg, x, positions, aux, causal)
+    x = L.norm(cfg, x, params.final_norm)
     return L.unembed(cfg, params.embed, x), aux
 
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
-    """The decode cache as meta tensors (shape and type, no storage)."""
-    _, _, n_scan = stack_plan(cfg)
-    kv = (n_scan, batch, s_max, cfg.n_kv_heads, cfg.hd)
+    """The decode cache as meta tensors (shape and type, no storage), as
+    the reference's ``init_cache_shapes``."""
+    pro, unit, n_scan = stack_plan(cfg)
     dt = getattr(torch, cfg.dtype)
-    return {"blocks": {"sub0": {"k": torch.empty(kv, dtype=dt, device="meta"),
-                                "v": torch.empty(kv, dtype=dt, device="meta")}},
-            "len": torch.empty((batch,), dtype=torch.int32, device="meta")}
+    kv = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+    ssm = (batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def block(mixer, lead=()):
+        if mixer == "attn":
+            return {"k": meta(lead + kv, dt), "v": meta(lead + kv, dt)}
+        return {"ssm": meta(lead + ssm, torch.float32),
+                "conv": meta(lead + conv, dt)}
+
+    cache = {"blocks": {f"sub{j}": block(m, (n_scan,))
+                        for j, (m, _, _) in enumerate(unit)},
+             "len": meta((batch,), torch.int32)}
+    for i, (m, _, _) in enumerate(pro):
+        cache[f"pro{i}"] = block(m)
+    return cache
 
 
-def decoder_decode(cfg: ModelConfig, params: Decoder, cache: Dict, tokens):
+def recurrent_state(cache: Dict):
+    """The cache's SSD tensors (``ssm`` and ``conv``), each with its batch
+    axis: ``[(tensor, batch_dim), ...]``; empty for attention-only
+    stacks."""
+    out = []
+    for name, sub in cache.items():
+        if name == "len":
+            continue
+        subs = sub.values() if name == "blocks" else (sub,)
+        for c in subs:
+            out += [(c[k], 1 if name == "blocks" else 0)
+                    for k in ("ssm", "conv") if k in c]
+    return out
+
+
+def decoder_decode(cfg: ModelConfig, params: Decoder, cache: Dict, tokens,
+                   active: Optional[torch.Tensor] = None):
     """One decode step.  tokens [B, 1]; returns (logits [B, V], cache).
 
-    The returned cache shares its k/v tensors with ``cache``, which this
-    step has written in place (`layers.attention_kv`); its ``len`` is
-    ``cache["len"] + 1``."""
+    The returned cache shares its tensors with ``cache``, which this step
+    has written in place (`layers.attention_kv`, `_commit`); its ``len``
+    is ``cache["len"] + 1``.  ``active`` (bool ``[B]``, or None for all)
+    names the rows whose recurrent (SSD) state advances; attention rows
+    are written at their ``len`` whatever it says."""
     cache_len = cache["len"]
     positions = cache_len[:, None]
-    kv = cache["blocks"]["sub0"]
     x = L.embed(cfg, params.embed, tokens)
-    for i, blk in enumerate(params.blocks):
-        x = blk.decode(cfg, x, positions, kv["k"][i], kv["v"][i], cache_len)
+    for i, blk in enumerate(params.pro):
+        x = blk.decode(cfg, x, positions, cache[f"pro{i}"], cache_len, active)
+    for n, blk in enumerate(params.blocks):
+        i, j = divmod(n, params.unit_len)
+        c = {k: t[i] for k, t in cache["blocks"][f"sub{j}"].items()}
+        x = blk.decode(cfg, x, positions, c, cache_len, active)
     x = L.norm(cfg, x, params.final_norm)
     logits = L.unembed(cfg, params.embed, x)[:, 0]
-    return logits, {"blocks": cache["blocks"], "len": cache_len + 1}
+    return logits, dict(cache, len=cache_len + 1)

@@ -8,6 +8,14 @@ eager step here), and the host's ``lens`` is the truth for every slot's
 fill: the cache's ``len`` is overwritten from it after every step, so an
 idle slot, whose ``lens`` stays where its last request left it, writes
 its padding token there and nowhere else.
+
+Recurrent (SSD) state is per slot.  The reference lets every slot's
+state advance on every step, a prefill step's dummy tokens included, and
+a re-admitted slot starts from its last request's state (ROADMAP C); here
+an admitted slot's state is zeroed, and a step advances only the rows of
+the slots it serves: the filling slot in a prefill step, the active ones
+in a decode step.  So a request's tokens do not depend on what else is
+batched with it.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.kv_cache import PagedKVCache
@@ -60,8 +69,9 @@ class ServeEngine:
         self._rids = MonotonicCounter()
         self.cache = M.init_cache(cfg, max_batch, max_seq, self.device)
         self.lens = np.zeros((max_batch,), np.int32)  # host truth for fills
-        self._decode = lambda cache, toks: M.decode_step(cfg, params, cache,
-                                                         toks)
+        self._recurrent = T.recurrent_state(self.cache)
+        self._decode = lambda cache, toks, active: M.decode_step(
+            cfg, params, cache, toks, active)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new: int = 16) -> int:
@@ -77,25 +87,32 @@ class ServeEngine:
             self.active[req.rid] = req
             self.slot_of[req.rid] = slot
             self.kv.add_sequence(slot, len(req.prompt))
+            for t, bdim in self._recurrent:    # a fresh recurrent state
+                t.select(bdim, slot).zero_()
             self._prefill_into_cache(req, slot)
 
     def _with_host_lens(self, cache):
         return dict(cache, len=torch.from_numpy(self.lens.copy()).to(
             self.device))
 
-    def _step_tokens(self, toks: np.ndarray):
-        """One decode step of the whole batch; ``(logits, new cache)``."""
-        self.cache = self._with_host_lens(self.cache)
+    def _step_tokens(self, toks: np.ndarray, active: np.ndarray):
+        """One decode step of the whole batch, the recurrent state of the
+        ``active`` slots advancing; ``(logits, new cache)``.  The host's
+        lens and the mask go to the device in one copy."""
+        host = torch.from_numpy(np.stack([self.lens, active]).astype(
+            np.int32)).to(self.device)
+        self.cache = dict(self.cache, len=host[0])
         return self._decode(self.cache, torch.from_numpy(toks).to(
-            self.device))
+            self.device), host[1] != 0)
 
     def _prefill_into_cache(self, req: Request, slot: int):
         """Run the prompt through decode steps to fill the cache slot."""
         self.lens[slot] = 0
+        only = np.arange(self.max_batch) == slot
         for tok in req.prompt:
             toks = np.zeros((self.max_batch, 1), np.int32)
             toks[slot, 0] = tok
-            _, new_cache = self._step_tokens(toks)
+            _, new_cache = self._step_tokens(toks, only)
             self.lens[slot] += 1  # only this slot advances during prefill
             self.cache = self._with_host_lens(new_cache)
 
@@ -106,10 +123,12 @@ class ServeEngine:
         if not self.active:
             return {}
         toks = np.zeros((self.max_batch, 1), np.int32)
+        active = np.zeros(self.max_batch, bool)
         for rid, req in self.active.items():
             last = req.out[-1] if req.out else req.prompt[-1]
             toks[self.slot_of[rid], 0] = last
-        logits, new_cache = self._step_tokens(toks)
+            active[self.slot_of[rid]] = True
+        logits, new_cache = self._step_tokens(toks, active)
         logits = logits.float().cpu().numpy()
         emitted = {}
         for rid, req in list(self.active.items()):

@@ -891,3 +891,84 @@ def test_smoke_engine_on_the_card_emits_the_cpu_tokens(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert outs[0] == outs[1] and len(outs[0]) == 6
+
+
+def _smoke_f32(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke(arch), dtype="float32")
+
+
+def _serve_smoke(cfg, params, dev, prompts, one_at_a_time=False, **kw):
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, device=dev, **kw)
+    if not one_at_a_time:
+        rids = [eng.submit(p, max_new=6) for p in prompts]
+        out = eng.run(max_steps=64)
+        return [out[r] for r in rids]
+    outs = []
+    for p in prompts:
+        r = eng.submit(p, max_new=6)
+        outs.append(eng.run(max_steps=64)[r])
+    return outs
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b", "mixtral-8x22b"])
+def test_smoke_engines_of_the_other_families_emit_the_cpu_tokens(card, arch):
+    """The moe, ssm and hybrid engines in float32 with TF32 off: greedy
+    tokens on the card equal the CPU's, and the slot index runs B1."""
+    from repro_torch.models import model as M
+
+    cfg = _smoke_f32(arch)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(2, cfg.vocab, rng.integers(3, 9)))
+               for _ in range(6)]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = M.init_params(cfg, seed=0, device="cpu")
+        gpu = M.init_params(cfg, seed=0, device="cpu").to(card)
+        kw = dict(max_batch=4, max_seq=96, page_size=8)
+        want = _serve_smoke(cfg, cpu, "cpu", prompts, **kw)
+        got = _serve_smoke(cfg, gpu, card, prompts, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got == want
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, gpu, device=card, **kw)
+    for _ in range(3):
+        eng.submit([2, 3, 4, 5], max_new=8)
+    eng.step()
+    idx = eng.kv.slot_index()
+    slots = np.arange(int(idx.cum[-1]), dtype=np.int32)
+    before = bs_kernel.launch.launches
+    got = idx.lookup(torch.from_numpy(slots).to(card))
+    torch.cuda.synchronize()
+    assert bs_kernel.launch.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.searchsorted(idx.cum, slots, "right") - 1)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_recurrent_state_stays_in_its_slot_on_the_card(card, arch):
+    """Three requests over 2 slots, batched, equal the same requests served
+    one at a time through an engine of the same shape: no slot's SSD state
+    moves on another's step or outlives its request."""
+    from repro_torch.models import model as M
+
+    cfg = _smoke_f32(arch)
+    prompts = [[5, 6, 7, 8], [9, 10, 11], [12, 13, 14, 15, 16]]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = M.init_params(cfg, seed=0, device=card)
+        kw = dict(max_batch=2, max_seq=64, page_size=8)
+        batched = _serve_smoke(cfg, params, card, prompts, **kw)
+        alone = _serve_smoke(cfg, params, card, prompts, one_at_a_time=True,
+                             **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert batched == alone

@@ -25,6 +25,7 @@ import torch
 from repro import configs as rconfigs
 from repro.models import layers as RL
 from repro.models import model as RM
+from repro.models import transformer as RT
 from repro_torch import configs, convert
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -32,8 +33,9 @@ from repro_torch.models import transformer as T
 
 DENSE = ["granite-3-2b", "starcoder2-3b", "qwen1.5-32b",
          "command-r-plus-104b", "chameleon-34b"]
-OTHER = ["mamba2-2.7b", "jamba-1.5-large-398b", "deepseek-moe-16b",
-         "mixtral-8x22b", "whisper-tiny"]
+NEW = ["mamba2-2.7b", "jamba-1.5-large-398b", "deepseek-moe-16b",
+       "mixtral-8x22b"]
+DECODERS = DENSE + NEW
 DTYPES = ["float32", "bfloat16"]
 LAYER_TOL = {"float32": dict(atol=1e-5, rtol=0.0),
              "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -249,10 +251,130 @@ def test_forward_loss_and_chained_decode_steps(arch, dtype):
     assert cache["len"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", OTHER)
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_families_name_item_13(arch):
     with pytest.raises(NotImplementedError, match="item 13"):
         M.init_params(configs.get_smoke(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_stack_plan_equals_the_reference(arch):
+    for get in ("get", "get_smoke"):
+        assert (T.stack_plan(getattr(configs, get)(arch))
+                == RT.stack_plan(getattr(rconfigs, get)(arch)))
+
+
+def _cache_close(cache, rcache, tol):
+    """Every leaf of the port's cache against the reference's."""
+    assert cache.keys() == rcache.keys()
+    for name, sub in rcache.items():
+        if name == "len":
+            np.testing.assert_array_equal(cache["len"].numpy(),
+                                          np.asarray(sub))
+            continue
+        subs = sub.items() if name == "blocks" else [(None, sub)]
+        for j, leaves in subs:
+            mine = cache[name][j] if j else cache[name]
+            assert mine.keys() == leaves.keys()
+            for k, v in leaves.items():
+                assert tuple(mine[k].shape) == v.shape
+                assert str(mine[k].dtype).split(".")[1] == str(v.dtype)
+                _close(mine[k], v, tol)
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_new_families_forward_loss_and_chained_decode_steps(arch):
+    """float32, the whole stack: logits, aux, loss + aux, and every cache
+    leaf (KV, SSM state, conv history, the prologue's) after each of 4
+    chained decode steps.  bf16 is held block by block (below): through
+    the whole stack an ulp can flip a top-k routing choice, and the
+    reference's own jitted and eager forwards of deepseek-moe-16b-smoke
+    differ by ~0.6 in bf16 for that reason."""
+    rcfg, cfg, rp, model = _pair(arch, "float32")
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    labels = rng.integers(-1, cfg.vocab, (2, 16)).astype(np.int32)
+    rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    pb = {"tokens": torch.from_numpy(toks).long(),
+          "labels": torch.from_numpy(labels)}
+    rlogits, raux = jax.jit(lambda p, b: RM.forward(rcfg, p, b))(rp, rb)
+    with torch.inference_mode():
+        logits, aux = M.forward(cfg, model, pb)
+        loss = M.loss_fn(cfg, model, pb)
+    _close(logits, rlogits, LOGITS_TOL["float32"])
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5, atol=1e-7)
+    assert (float(aux) > 0) == bool(cfg.n_experts)
+    rloss = jax.jit(lambda p, b: RM.loss_fn(rcfg, p, b))(rp, rb)
+    _close(loss, rloss, LOGITS_TOL["float32"])
+
+    rcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                          RM.cache_shapes(rcfg, 2, 24))
+    cache = M.init_cache(cfg, 2, 24, "cpu")
+    step = jax.jit(lambda p, c, t: RM.decode_step(rcfg, p, c, t))
+    for i in range(4):
+        t = toks[:, i:i + 1]
+        rl, rcache = step(rp, rcache, jnp.asarray(t))
+        with torch.inference_mode():
+            pl, cache = M.decode_step(cfg, model, cache, torch.from_numpy(t))
+        _close(pl, rl, LOGITS_TOL["float32"])
+        _cache_close(cache, rcache, LOGITS_TOL["float32"])
+
+
+def _rblocks(rcfg, rp):
+    """The reference's blocks in the port's order: (params, mixer, ffn)."""
+    pro, unit, n_scan = RT.stack_plan(rcfg)
+    out = [(rp[f"pro{i}"], m, f) for i, (m, f, _) in enumerate(pro)]
+    for i in range(n_scan):
+        for j, (m, f, _) in enumerate(unit):
+            out.append((jax.tree.map(lambda a: a[i], rp["blocks"][f"sub{j}"]),
+                        m, f))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", NEW)
+def test_every_block_forward_and_decode_step(arch, dtype):
+    """Each block of the stack on the same input as the reference's
+    ``apply_block`` (aux too) and ``apply_block_decode`` (with its cache
+    rows at mixed fills), at the layer tolerance."""
+    rcfg, cfg, rp, model = _pair(arch, dtype)
+    blocks = [*model.pro, *model.blocks]
+    rblocks = _rblocks(rcfg, rp)
+    assert [(b.mixer, b.ffn) for b in blocks] == [(m, f) for _, m, f in
+                                                  rblocks]
+    xr, xp = _x((2, 16, cfg.d_model), dtype, seed=12)
+    pos = np.tile(np.arange(16), (2, 1))
+    dr, dp = _x((2, 1, cfg.d_model), dtype, seed=13)
+    lens = np.array([3, 7], np.int32)
+    for n, (blk, (rpb, mixer, ffn)) in enumerate(zip(blocks, rblocks)):
+        ry, raux = RT.apply_block(rcfg, rpb, xr, jnp.asarray(pos),
+                                  jnp.zeros((), jnp.float32), mixer, ffn)
+        with torch.inference_mode():
+            y, aux = blk(cfg, xp, torch.from_numpy(pos),
+                         torch.zeros((), dtype=torch.float32))
+        _close(y, ry, LAYER_TOL[dtype])
+        np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5,
+                                   atol=1e-7)
+        if mixer == "attn":
+            kv = (2, 8, cfg.n_kv_heads, cfg.hd)
+            c = dict(zip("kv", (_x(kv, dtype, seed=14 + i) for i in range(2))))
+        else:
+            c = {"ssm": _x((2, cfg.ssm_heads, cfg.ssm_state,
+                            cfg.ssm_head_dim), "float32", seed=16),
+                 "conv": _x((2, cfg.ssm_conv - 1,
+                             cfg.d_inner + 2 * cfg.ssm_state), dtype, seed=17)}
+        rc = {k: v[0] for k, v in c.items()}
+        rc["len"] = jnp.asarray(lens)
+        ry, rc = RT.apply_block_decode(rcfg, rpb, dr, jnp.asarray(lens[:, None]),
+                                       rc, mixer, ffn)
+        pc = {k: v[1] for k, v in c.items()}
+        with torch.inference_mode():
+            y = blk.decode(cfg, dp, torch.from_numpy(lens[:, None]), pc,
+                           torch.from_numpy(lens))
+        _close(y, ry, LAYER_TOL[dtype])
+        for k in pc:
+            _close(pc[k], rc[k], LAYER_TOL[dtype])
+        xr, xp = _x((2, 16, cfg.d_model), dtype, seed=20 + n)
 
 
 def test_full_granite_on_the_meta_device_has_the_reference_count():
@@ -269,6 +391,55 @@ def test_full_granite_on_the_meta_device_has_the_reference_count():
             if "norm" not in n} == {torch.bfloat16}
     shapes = M.cache_shapes(cfg, 4, 128)
     assert tuple(shapes["blocks"]["sub0"]["k"].shape) == (40, 4, 128, 8, 64)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b"])
+def test_full_config_on_the_meta_device_has_the_reference_count(arch):
+    """Every parameter tensor of the full config, by name, shape and
+    type, against the reference's ``init_params`` traced without
+    allocating."""
+    cfg = configs.get(arch)
+    model = M.init_params(cfg, device="meta")
+    ref = jax.eval_shape(lambda: RM.init_params(rconfigs.get(arch),
+                                                jax.random.PRNGKey(0)))
+    pro, unit, n_scan = T.stack_plan(cfg)
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+        keys = [k.key for k in path]
+        if keys[0] == "blocks":
+            j = int(keys[1][3:])
+            for i in range(n_scan):
+                want[".".join(["blocks", str(i * len(unit) + j), *keys[2:]])] = (
+                    leaf.shape[1:], str(leaf.dtype))
+        elif keys[0].startswith("pro"):
+            want[".".join(["pro", keys[0][3:], *keys[1:]])] = (
+                leaf.shape, str(leaf.dtype))
+        else:
+            want[".".join(keys)] = (leaf.shape, str(leaf.dtype))
+    got = {n: (tuple(p.shape), str(p.dtype).split(".")[1])
+           for n, p in model.named_parameters()}
+    assert got == want
+    total = sum(p.numel() for p in model.parameters())
+    assert total == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(ref))
+    assert total == {"deepseek-moe-16b": 16_375_728_128,
+                     "mamba2-2.7b": 2_702_624_256}[arch]
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_decoder_from_reference_takes_every_leaf_of_the_new_trees(arch):
+    rcfg, cfg, rp, model = _pair(arch, "float32")
+    pnp = jax.tree.map(lambda a: np.asarray(a, np.float32), rp)
+    for name, p in model.named_parameters():
+        assert p.dtype == (torch.float32 if p.dtype == torch.float32
+                           else getattr(torch, cfg.dtype))
+    extra = dict(pnp, pro9={"w": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="values"):
+        convert.decoder_from_reference(cfg, extra, "cpu")
+    missing = jax.tree.map(lambda a: a, pnp)
+    sub = next(iter(missing["blocks"].values()))
+    sub.pop(next(iter(sub)))
+    with pytest.raises(KeyError):
+        convert.decoder_from_reference(cfg, missing, "cpu")
 
 
 def test_decoder_from_reference_takes_every_leaf():

@@ -5,6 +5,14 @@ The engine is held in float32, where greedy decoding must emit the
 reference's tokens exactly; the paged-KV bookkeeping and the learned slot
 index are integer and must be bit-identical to the reference (and the
 slot index to ``np.searchsorted``).
+
+The reference engine's decode is made synchronous here: on the CPU
+``jnp.asarray`` of its host ``lens`` aliases the numpy buffer, and the
+engine advances ``lens`` while the dispatched step may still read it
+(`src/repro/serve/engine.py:85-88`, `:101-111`), so its tokens varied
+from run to run.  For the SSD families (mamba2, jamba) the oracle is each
+request served alone by the reference: its batched engine lets every
+slot's recurrent state advance on other slots' steps (ROADMAP C).
 """
 import dataclasses
 import os
@@ -28,18 +36,32 @@ from repro_torch.serve import kv_cache
 from repro_torch.serve.engine import ServeEngine
 
 
-def _engines(arch, dtype="float32", **kw):
-    """The reference's engine and the port's, on the same weights."""
+def _synchronous(ref):
+    """The reference engine with each decode step waited for before the
+    engine touches its host ``lens`` again."""
+    decode = ref._decode
+    ref._decode = lambda *a: jax.block_until_ready(decode(*a))
+    return ref
+
+
+def _weights(arch, dtype="float32"):
     rcfg = dataclasses.replace(rconfigs.get_smoke(arch), dtype=dtype)
     cfg = dataclasses.replace(configs.get_smoke(arch), dtype=dtype)
     rp = RM.init_params(rcfg, jax.random.PRNGKey(0))
     model = convert.decoder_from_reference(
         cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), rp), "cpu")
-    return (rengine.ServeEngine(rcfg, rp, **kw),
+    return rcfg, cfg, rp, model
+
+
+def _engines(arch, dtype="float32", **kw):
+    """The reference's engine and the port's, on the same weights."""
+    rcfg, cfg, rp, model = _weights(arch, dtype)
+    return (_synchronous(rengine.ServeEngine(rcfg, rp, **kw)),
             ServeEngine(cfg, model, device="cpu", **kw))
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b",
+                                  "deepseek-moe-16b", "mixtral-8x22b"])
 def test_engine_emits_the_reference_tokens(arch):
     """`examples/serve_paged_kv.py`'s traffic: 6 requests over 4 slots,
     so slots are freed and re-admitted mid-run."""
@@ -66,6 +88,33 @@ def test_engine_emits_the_reference_tokens(arch):
     want = np.asarray(ref2.kv.slot_index().lookup(jnp.asarray(slots)))
     got = port2.kv.slot_index().lookup(torch.from_numpy(slots))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+PROMPTS = ([5, 6, 7, 8], [9, 10, 11], [12, 13, 14, 15, 16])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_recurrent_engine_serves_each_request_as_if_alone(arch):
+    """Three requests over 2 slots (the third re-admits a freed slot):
+    the port's batched tokens equal each request served alone by the
+    reference (``max_batch=1``); the reference's batched tokens differ
+    (its state leak).  Which tokens the weights give depends on whether
+    another test module turned on ``jax_enable_x64`` in this process."""
+    rcfg, cfg, rp, model = _weights(arch)
+    kw = dict(max_seq=64, page_size=8)
+    alone = []
+    for prompt in PROMPTS:
+        ref = _synchronous(rengine.ServeEngine(rcfg, rp, max_batch=1, **kw))
+        ref.submit(prompt, max_new=5)
+        alone.append(ref.run()[0])
+    ref = _synchronous(rengine.ServeEngine(rcfg, rp, max_batch=2, **kw))
+    port = ServeEngine(cfg, model, max_batch=2, device="cpu", **kw)
+    for eng in (ref, port):
+        for prompt in PROMPTS:
+            eng.submit(prompt, max_new=5)
+    got, leaked = port.run(), ref.run()
+    assert [got[r] for r in range(3)] == alone
+    assert [leaked[r] for r in range(3)] != alone
 
 
 def test_engine_refuses_params_on_another_device():
@@ -197,10 +246,19 @@ def _driver(*args):
         capture_output=True, text=True, timeout=300)
 
 
-def test_driver_serves_tokens_on_the_cpu():
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "mixtral-8x22b"])
+def test_driver_serves_tokens_on_the_cpu(arch):
     out = _driver("--smoke", "--device", "cpu", "--requests", "4",
-                  "--max-new", "4")
+                  "--max-new", "4", "--arch", arch)
     assert out.returncode == 0, out.stderr
-    assert "serving granite-3-2b-smoke" in out.stdout
+    assert f"serving {arch}-smoke" in out.stdout
     assert "16 tokens for 4 requests" in out.stdout
     assert "over 4 slots" in out.stdout
+
+
+def test_driver_refuses_the_encdec_family():
+    out = _driver("--smoke", "--device", "cpu", "--arch", "whisper-tiny")
+    assert out.returncode == 2
+    assert "item 13" in out.stderr
