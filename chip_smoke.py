@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's learned-index read path on one NVIDIA card.
+"""Drive the PyTorch port's learned-index read path, its token serving
+and its training on one NVIDIA card.
 
     python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
 
@@ -10,11 +11,11 @@ then runs the main path at full size on two surrogates: ``amzn``, on which
 windows are narrow.  Each gets an RMI with 2^18 stage-2 models built
 through ``spec.build`` and a ``LookupPlan`` compiled for the ``cuda``
 backend (fused: one ``rmi_lookup`` launch a batch; unfused: the torch
-predict, then ``bounded_search``) and the ``torch`` backend; 10M queries in
+predict, then ``bounded_search``) and the ``torch`` backend; 5M queries in
 batches of 1M, every answer held against ``np.searchsorted`` on the host.
 
 Per cell, after the main path: the device's idle share over the fused
-path's 10 batches (the kernel's own CUDA event pair, recorded by its
+path's 5 batches (the kernel's own CUDA event pair, recorded by its
 wrapper around each launch inside the host window; the phase fails outside
 [0, 1)), and on amzn a ``torch.profiler``
 window over them (device time by kernel, idle share); the kernels' device
@@ -61,8 +62,11 @@ fires ``workload_drift`` and one poll lands a verified swap, on
 broadcast, again over the same spec store (no sweep), and at shards 2.
 Then token serving, weights drawn on the card from ``--seed``, at the
 published width of granite-3-2b (``tokens``), deepseek-moe-16b
-(``tokens_moe``, the moe family) and mamba2-2.7b (``tokens_ssm``, the ssm
-family): decode steps against ``forward`` in float32 with TF32 off (two
+(``tokens_moe``, the moe family), mamba2-2.7b (``tokens_ssm``, the ssm
+family) and whisper-tiny (``tokens_encdec``, the encdec family, over
+1,500 stub frames encoded into the cache for the check and left at zero
+by the engine, as the reference's leaves them): decode steps against
+``forward`` in float32 with TF32 off (two
 prompts of 32 tokens, argmax equal at every position; deepseek cut to 4
 layers and made dropless for the check), the reference driver's traffic
 through ``ServeEngine`` in bf16 at full depth (8 requests, 8 new tokens, 4
@@ -73,13 +77,26 @@ tokens), and the paged KV cache's learned slot index through B1 on int32
 keys on a live layout (granite also on 256 sequences of 1..8192 tokens,
 with B1's timings), held against its plain version and
 ``np.searchsorted``; then jamba-1.5-large-398b (the hybrid family) and
-mixtral-8x22b, which do not fit one card, at their smoke widths, the
-card's tokens against the CPU's (``tokens_smoke``).  Last the serve
-driver ``python -m repro_torch.launch.serve --mode lookup --doctor`` as a
-subprocess, at its defaults (the async executor), with
+mixtral-8x22b, which do not fit one card, and whisper-tiny at their smoke
+widths, the card's tokens against the CPU's (``tokens_smoke``).  Then
+training: granite-3-2b at its published width and depth (``train``: 20
+steps of the reference train driver's traffic and defaults with
+autograd on, bf16 parameters and float32 AdamW moments; losses, grad
+norms, step ms from CUDA events split into forward-backward and update,
+tokens/s, peak memory and the step's bound; again with remat "none",
+bit-identical, and at a tenth of the peak lr, where the loss must fall),
+a step at 2 layers of that width in float32 on the card against the CPU
+and with 2 microbatches against 1 (``train_check``), a bf16 run saved,
+restored into a state from another seed and resumed, bit-identical to
+the uninterrupted run (``train_resume``), and one float32 step of every
+config's smoke width, the card against the CPU (``train_smoke``).  Last
+the serve driver ``python -m repro_torch.launch.serve --mode lookup
+--doctor`` as a subprocess, at its defaults (the async executor), with
 ``--metrics-jsonl``, with ``--executor sync``, with ``--shards 2
---replicas 2`` and with ``--autotune-daemon --autotune-store``, and in
-token mode at the full width of each token phase's arch (``driver``).
+--replicas 2`` and with ``--autotune-daemon --autotune-store``, in token
+mode at the full width of each token phase's arch, and the train driver
+``python -m repro_torch.launch.train`` at granite-3-2b's full width and,
+with a checkpoint and a resume, at its smoke width (``driver``).
 One JSON line per phase; any failure exits nonzero.  The last line is the
 device summary ``{"ok": true, "device": {...}}``.  Full results go to
 ``--out``.
@@ -103,13 +120,16 @@ import subprocess
 import sys
 import time
 
+_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 LANE_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
 CHECK_N = 1_000_000            # keys and queries of the kernel-vs-plain phase
-QUERIES = 10_000_000           # queries of each main-path run
+#: queries of each main-path run: cut from 10M to 5M to leave the
+#: training phases room in the time limit (PERF.md §4)
+QUERIES = 5_000_000
 BATCH = 1_000_000              # queries per lookup call
 BRANCHING = 2 ** 18            # RMI stage-2 models, the top rung of its ladder
 # main-path cells: amzn first (its numbers make the `kernels` line), then a
@@ -193,14 +213,52 @@ TOKENS_ARCH = "granite-3-2b"
 #: room on one card
 TOKEN_PHASES = {"tokens": (TOKENS_ARCH, None),
                 "tokens_moe": ("deepseek-moe-16b", 4),
-                "tokens_ssm": ("mamba2-2.7b", None)}
-#: configs that do not fit one card, served at their smoke widths
-SMOKE_ENGINE_ARCHS = ("jamba-1.5-large-398b", "mixtral-8x22b")
+                "tokens_ssm": ("mamba2-2.7b", None),
+                "tokens_encdec": ("whisper-tiny", None)}
+#: smoke engines, the card's tokens against the CPU's: the configs that do
+#: not fit one card, and whisper-tiny (encdec) at its smoke width too
+SMOKE_ENGINE_ARCHS = ("jamba-1.5-large-398b", "mixtral-8x22b",
+                      "whisper-tiny")
 TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN = 2, 32
 TOKENS_CHECK_MAX_ERR = 1e-3    # |decode - forward| logits, float32
 TOKENS_REQUESTS, TOKENS_MAX_NEW = 8, 8
 TOKENS_MAX_BATCH, TOKENS_MAX_SEQ = 4, 128
 SLOT_SEQS, SLOT_MAX_LEN = 256, 8192
+#: training (`train`): granite-3-2b at its published width and depth, bf16
+#: parameters with float32 AdamW moments and its config's remat ("dots"),
+#: on the reference train driver's traffic and defaults
+#: (src/repro/launch/train.py:51-58, :70-73: seq 64, global batch 8, lr
+#: 3e-3, cosine with warm-up 10 over the run, weights from a seed)
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP = 20, 64, 8, \
+    3e-3, 10
+#: the driver's peak lr does not train the full width in 20 steps (its
+#: loss rises, 11.29 -> 13.41; PERF.md §6), so `train` also runs the same
+#: steps at a tenth of it, the order of published rates for models of
+#: this size (GPT-3's 2.7B: 1.6e-4), where the loss must fall
+TRAIN_LR_FALLS = 3e-4
+#: `train_check` (float32, TF32 off) and `train_resume` (bf16) at the
+#: same width, cut to 2 layers so that the CPU can run the check's step
+TRAIN_CHECK_LAYERS = 2
+TRAIN_RESUME_SAVE, TRAIN_RESUME_END = 3, 6     # save after step 3, on to 6
+#: a train step on the card against the CPU (float32, TF32 off): loss,
+#: grad norm and lr to 1e-5 relative; the gradient at the first weights
+#: to |diff| <= 1e-5 G + 1e-4 |g| (G the model's largest gradient
+#: element); every parameter after the step within twice the step's lr.
+#: AdamW divides by sqrt(v) + 1e-8, so an element whose gradient is at
+#: rounding-noise level (a key bias's is 0 in exact arithmetic: softmax
+#: ignores a shift shared by every key) takes a normalized step anywhere
+#: in [-1, 1] on either side: the gradient is the tight check
+TRAIN_CHECK_RTOL, TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+#: the driver runs in waves of processes that run at once on the one card
+#: (a run's checks read only its own output and files): a wave holds what
+#: fits the card's memory together (deepseek-moe-16b's ~33 GB in the
+#: first, the full-width train run's ~34 GB with granite's and mamba2's
+#: ~13 GB in the second), and a resume follows its save
+DRIVER_WAVES = (("default", "metrics_jsonl", "sync", "routed", "autotune",
+                 "tokens_moe", "tokens_encdec", "train_smoke_ckpt"),
+                ("tokens", "tokens_ssm", "train", "train_smoke_resume"))
 
 
 class SmokeFailure(RuntimeError):
@@ -208,6 +266,9 @@ class SmokeFailure(RuntimeError):
 
 
 def emit(record: dict, log: list) -> None:
+    """Print and keep ``record``, stamped with the seconds since the
+    script started (``at_s``)."""
+    record.setdefault("at_s", time.perf_counter() - _START)
     log.append(record)
     print(json.dumps(record), flush=True)
 
@@ -374,7 +435,7 @@ def phase_kernels_vs_plain(dev, seed, log, errs):
 
 
 def make_cell(dev, dataset, args):
-    """The cell's keys (host), its 10M queries (on the card) and their
+    """The cell's keys (host), its queries (on the card) and their
     np.searchsorted ranks (host)."""
     import numpy as np
     from repro_torch.data import sosd
@@ -445,7 +506,7 @@ def phase_main_path(dev, dataset, cell, args, log, totals):
           "host_oracle_s": cell["host_oracle_s"]}, log)
 
     runs = [("cuda", True), ("cuda", False), ("torch", None), ("cuda", True)]
-    calls = QUERIES // BATCH + 1                  # a warm-up batch, then 10
+    calls = QUERIES // BATCH + 1                  # a warm-up batch, then 5
     e2e, per_run = {}, []
     launches = {k: 0 for k in kernel_counters()}
     for backend, fused in runs:
@@ -490,12 +551,12 @@ def phase_main_path(dev, dataset, cell, args, log, totals):
 
 
 def phase_profile(p, qt, dataset, log, trace: bool):
-    """The fused path's 10 batches on the host clock, with the wrapper's
+    """The fused path's 5 batches on the host clock, with the wrapper's
     own CUDA event pair around each kernel launch (``timed``) inside that
     same window: the kernels' device time over the window is the
     device's busy share, and the phase fails unless the idle share lies
     in [0, 1).  With ``trace``, also a torch.profiler window over the
-    same 10 batches: device time by kernel, device events a batch, the
+    same 5 batches: device time by kernel, device events a batch, the
     idle share it shows, and what the profiler adds to the window.  Only
     the first cell asks for the trace: on an H100 the first profiler
     session of a process recorded all 10 kernels, a second one 3 of its
@@ -506,7 +567,7 @@ def phase_profile(p, qt, dataset, log, trace: bool):
     batches = QUERIES // BATCH
 
     def window():
-        """Host-clock microseconds over the 10 batches."""
+        """Host-clock microseconds over the 5 batches."""
         t0 = time.perf_counter()
         for i in range(0, QUERIES, BATCH):
             fn(qt[i:i + BATCH])
@@ -753,7 +814,7 @@ def b1_on_windows(p, q0):
 def phase_families(dev, dataset, cell, data, args, log, totals, errs):
     """Every other index family on the cell's keys, built through
     ``spec.build`` on the card at its schema defaults, lowered, and run on
-    both backends over the 10M queries; each family is freed before the
+    both backends over the 5M queries; each family is freed before the
     next is built."""
     import gc
 
@@ -1865,10 +1926,19 @@ def _decode_vs_forward(dev, args, cfg32, rec):
     rng = np.random.default_rng(args.seed)
     toks = torch.from_numpy(rng.integers(
         2, cfg32.vocab, (TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN))).to(dev)
+    batch = {"tokens": toks}
+    if cfg32.family == "encdec":        # stub frames, encoded into the cache
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (TOKENS_CHECK_PROMPTS, cfg32.encoder_seq, cfg32.d_model)).astype(
+            np.float32)).to(dev)
     with torch.inference_mode():
-        fwd, aux = M.forward(cfg32, params, {"tokens": toks})
+        fwd, aux = M.forward(cfg32, params, batch)
         cache = M.init_cache(cfg32, TOKENS_CHECK_PROMPTS, TOKENS_CHECK_LEN,
                              dev)
+        if "frames" in batch:
+            from repro_torch.models import encdec
+            cache["enc_out"].copy_(encdec.encode(cfg32, params,
+                                                 batch["frames"]))
         steps = []
         for i in range(TOKENS_CHECK_LEN):
             logits, cache = M.decode_step(cfg32, params, cache,
@@ -2037,14 +2107,12 @@ def phase_tokens(dev, args, log, phase="tokens"):
           "replay differs from the eager step")
     graph_ms = cuda_ms(graph.replay)
     n_tok = sum(len(v) for v in outs.values())
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for name, sub in engine.cache.items() if name != "len"
-                   for c in (sub.values() if name == "blocks" else (sub,))
-                   for k, t in c.items() if k in ("k", "v"))
+    kv_bytes = _cache_bytes(engine.cache, ("k", "v"))
+    enc_bytes = _cache_bytes(engine.cache, ("enc_out",))
     state_bytes = sum(t.numel() * t.element_size() for t, _ in recurrent)
-    # every weight and the KV cache read once, the recurrent state read
-    # and written
-    step_bound_ms = ((weight_bytes + kv_bytes + 2 * state_bytes)
+    # every weight, the KV cache and the cached encoder states read once,
+    # the recurrent state read and written
+    step_bound_ms = ((weight_bytes + kv_bytes + enc_bytes + 2 * state_bytes)
                      / HBM_BYTES_PER_S * 1e3)
     rec.update(
         requests=TOKENS_REQUESTS, max_new=TOKENS_MAX_NEW,
@@ -2057,7 +2125,7 @@ def phase_tokens(dev, args, log, phase="tokens"):
         step_bound_ms=step_bound_ms, step_graph_replay_ms=graph_ms,
         idle_share_of_step=1 - graph_ms / float(np.median(step_ms)),
         weight_bytes=weight_bytes, kv_bytes=kv_bytes,
-        recurrent_state_bytes=state_bytes,
+        encoder_state_bytes=enc_bytes, recurrent_state_bytes=state_bytes,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=counts, outputs={str(r): outs[r] for r in rids})
     check(n_tok == TOKENS_REQUESTS * TOKENS_MAX_NEW
@@ -2103,6 +2171,16 @@ def phase_tokens(dev, args, log, phase="tokens"):
     gc.collect()
     torch.cuda.empty_cache()
     return rec, kernel
+
+
+def _cache_bytes(cache, names) -> int:
+    """Bytes of the decode cache's tensors named in ``names``, at any
+    depth of the tree."""
+    if isinstance(cache, dict):
+        return sum(_cache_bytes(v, names) if isinstance(v, dict)
+                   else (v.numel() * v.element_size() if k in names else 0)
+                   for k, v in cache.items())
+    return 0
 
 
 def _prompts(cfg):
@@ -2161,10 +2239,11 @@ def _b1_int32_timing(rec, big, counts, errs):
 
 def phase_smoke_engines(dev, log):
     """The configs that do not fit one card (jamba-1.5-large-398b, the only
-    hybrid, and mixtral-8x22b), at their smoke widths: the engine on the
-    card in float32 (TF32 off) against the same engine on the CPU, token
-    for token, over `tests/test_torch_serve_tokens.py`'s traffic, and the
-    slot index of a live layout; returns the records."""
+    hybrid, and mixtral-8x22b) and whisper-tiny (encdec), at their smoke
+    widths: the engine on the card in float32 (TF32 off) against the same
+    engine on the CPU, token for token, over
+    `tests/test_torch_serve_tokens.py`'s traffic, and the slot index of a
+    live layout; returns the records."""
     import dataclasses
 
     import numpy as np
@@ -2207,6 +2286,374 @@ def phase_smoke_engines(dev, log):
         out[arch] = rec
     return out
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _train_opt(peak_lr=TRAIN_LR):
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    return AdamW(lr=cosine_schedule(peak_lr, warmup=TRAIN_WARMUP,
+                                    total=TRAIN_STEPS))
+
+
+def _train_pipe(cfg, dev):
+    """The reference train driver's token pipeline (seed 0)."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    return TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0), device=dev)
+
+
+def _on(batch, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_step_bound(cfg, run, tokens: int):
+    """The least time of one train step: ``(ms, "bytes" | "operations",
+    bytes, flops)``.  Bytes: the forward and the backward each read every
+    weight, the backward writes the gradient, the clip's norm and the
+    update read it, the update reads and writes every parameter and reads
+    and writes both float32 moments: 7 x the parameter bytes + 16 bytes a
+    parameter.  Operations: 6 x the matrix parameters x tokens (forward 2,
+    backward 4; the tied embedding counted once, as the unembedding) and
+    the attention scores and weighted sums (forward 4 x B x S^2 x heads x
+    head_dim a layer, 3 x that with the backward), at the bf16 peak;
+    recomputation under remat is not counted.  ``run``: a `_train_run`
+    record (its parameter counts)."""
+    n, w_bytes, mm = run["params"], run["param_bytes"], run["matrix_params"]
+    b, s = TRAIN_BATCH, tokens // TRAIN_BATCH
+    attn = 3 * 4 * b * s * s * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * mm * tokens + attn
+    bytes_moved = 7 * w_bytes + 16 * n
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, flops)
+
+
+def _train_run(cfg, dev, args, peak_lr):
+    """TRAIN_STEPS steps of ``cfg`` from weights drawn from ``args.seed``
+    on the driver's traffic at ``peak_lr``: the record's numbers (losses,
+    grad norms, step ms from CUDA events, tokens/s, peak memory, the
+    kernels launched)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = _train_opt(peak_lr)
+    params = M.init_params(cfg, seed=args.seed, device=dev)
+    box = [TS.TrainState(params, opt.init(params))]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = _train_pipe(cfg, dev)
+    step_fn = TS.make_train_step(cfg, opt)
+
+    def run():
+        metrics, events = [], []
+        t0 = time.perf_counter()
+        for s in range(TRAIN_STEPS):
+            batch = _on(pipe.batch(s), dev)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            box[0], m = step_fn(box[0], batch)
+            ev[1].record()
+            metrics.append(m)
+            events.append(ev)
+        torch.cuda.synchronize()
+        return metrics, events, time.perf_counter() - t0
+
+    (metrics, events, wall), counts = driven(run)
+    step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    steady = step_ms[1:]
+    # the step's two halves on one more batch: the loss's forward and
+    # backward, then the AdamW update (it runs once more on the state)
+    batch = _on(pipe.batch(TRAIN_STEPS), dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    grads = torch.autograd.grad(M.loss_fn(cfg, params, batch),
+                                list(params.parameters()))
+    ev[1].record()
+    opt.update(grads, box[0].opt, params)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    out = dict(
+        peak_lr=peak_lr, remat=cfg.remat, init_s=init_s,
+        params=sum(p.numel() for p in params.parameters()),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in params.parameters()),
+        matrix_params=sum(p.numel() for n, p in params.named_parameters()
+                          if "norm" not in n),
+        loss=[float(m["loss"]) for m in metrics],
+        grad_norm=[float(m["grad_norm"]) for m in metrics],
+        lr_last=float(metrics[-1]["lr"]), wall_s=wall,
+        tokens_per_s=TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
+        first_step_ms=float(step_ms[0]),
+        step_ms_p50=float(np.percentile(steady, 50)),
+        step_ms_p99=float(np.percentile(steady, 99)),
+        step_ms_mean=float(steady.mean()),
+        forward_backward_ms=ev[0].elapsed_time(ev[1]),
+        update_ms=ev[1].elapsed_time(ev[2]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts)
+    del box, params, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, args, log):
+    """granite-3-2b at its published width and depth trains for
+    TRAIN_STEPS steps on the reference driver's traffic with autograd on,
+    three times from the same weights: at the driver's defaults (its peak
+    lr, the config's remat "dots"; the phase's step ms, tokens/s, peak
+    memory and bound), again with remat "none" (its losses must equal the
+    first run's bit for bit: remat is memory, not arithmetic; its step
+    ms), and at TRAIN_LR_FALLS (remat "none", the faster), where the loss
+    at the last step must be below the first.  Every loss and grad norm
+    must be finite."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get
+
+    cfg = get(TRAIN_ARCH)
+    rec = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "steps": TRAIN_STEPS, "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "lr": TRAIN_LR,
+           "warmup": TRAIN_WARMUP}
+    none = dataclasses.replace(cfg, remat="none")
+    runs = {"driver": _train_run(cfg, dev, args, TRAIN_LR),
+            "remat_none": _train_run(none, dev, args, TRAIN_LR),
+            "lr_falls": _train_run(none, dev, args, TRAIN_LR_FALLS)}
+    main = runs["driver"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    b_ms, b_by, b_bytes, b_flops = train_step_bound(cfg, main, tokens)
+    rec.update(main, runs={k: v for k, v in runs.items() if k != "driver"},
+               step_bound_ms=b_ms, step_bound_by=b_by,
+               step_bound_bytes=b_bytes, step_bound_flops=b_flops,
+               bound_share_of_p50=b_ms / main["step_ms_p50"],
+               remat_none_equal=runs["remat_none"]["loss"] == main["loss"])
+    emit(rec, log)
+    for name, r in runs.items():
+        check(all(math.isfinite(v) for v in r["loss"] + r["grad_norm"]),
+              f"train ({name}): a non-finite loss or grad norm: {r}")
+    check(rec["remat_none_equal"], "train: remat none and dots give other "
+          f"losses: {runs['remat_none']['loss']} vs {main['loss']}")
+    falls = runs["lr_falls"]["loss"]
+    check(falls[-1] < falls[0],
+          f"train at lr {TRAIN_LR_FALLS}: loss did not fall: {falls}")
+    return rec
+
+
+def _check_step(tag, got, want, lr):
+    """A train step against its reference run: ``got``/``want`` are
+    `_one_step` results; returns the record's numbers and fails outside
+    the TRAIN_CHECK tolerance."""
+    rel = {k: abs(got[0][k] - want[0][k]) / max(abs(want[0][k]), 1e-30)
+           for k in ("loss", "grad_norm", "lr")}
+    big = max(float(g.abs().max()) for g in want[2])
+    grad_excess = max(float(((a - b).abs() - TRAIN_GRAD_RTOL * b.abs())
+                            .max()) for a, b in zip(got[2], want[2]))
+    dmax = max(float((a - b).abs().max()) for a, b in zip(got[1], want[1]))
+    out = {"rel_diff": rel, "grad_largest": big,
+           "grad_excess_over_rtol": grad_excess,
+           "param_max_abs_diff": dmax, "lr": lr}
+    check(max(rel.values()) <= TRAIN_CHECK_RTOL
+          and grad_excess <= TRAIN_GRAD_ATOL * big and dmax <= 2 * lr,
+          f"{tag}: {out}")
+    return out
+
+
+def _one_step(cfg, opt, model, batch, dev, microbatches=1):
+    """One train step of ``model`` (moved to ``dev``) on ``batch``:
+    ``(metrics as floats, params after the step, the loss's gradient at
+    the first weights)``, tensors on the CPU."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    model = model.to(dev)
+    batch = _on(batch, dev)
+    grads = [g.cpu() for g in torch.autograd.grad(
+        M.loss_fn(cfg, model, batch), list(model.parameters()))]
+    state = TS.TrainState(model, opt.init(model))
+    state, m = TS.make_train_step(cfg, opt, microbatches)(state, batch)
+    return ({k: float(v) for k, v in m.items()},
+            [p.detach().cpu() for p in state.params.parameters()], grads)
+
+
+def phase_train_check(dev, args, log):
+    """granite-3-2b's width at TRAIN_CHECK_LAYERS layers in float32, TF32
+    off: one step on the card against the same step on the CPU from the
+    same weights, and ``microbatches=2`` against 1 on the card."""
+    import copy
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    rec = {"phase": "train_check", "arch": cfg.name,
+           "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": cfg.remat}
+    opt = _train_opt()
+    batch = _train_pipe(cfg, "cpu").batch(0)
+    t0 = time.perf_counter()
+    init = M.init_params(cfg, seed=args.seed, device="cpu")
+    rec["params"] = sum(p.numel() for p in init.parameters())
+    cpu = _one_step(cfg, opt, copy.deepcopy(init), batch, "cpu")
+    rec["cpu_step_s"] = time.perf_counter() - t0
+    (card, card2), counts = driven(lambda: (
+        _one_step(cfg, opt, copy.deepcopy(init), batch, dev),
+        _one_step(cfg, opt, copy.deepcopy(init), batch, dev, 2)))
+    lr = cpu[0]["lr"]
+    rec["card_vs_cpu"] = _check_step("train_check: card vs CPU", card, cpu,
+                                     lr)
+    rec["microbatches_2_vs_1"] = _check_step(
+        "train_check: microbatches 2 vs 1", card2, card, lr)
+    rec.update(loss_cpu=cpu[0]["loss"], loss_card=card[0]["loss"],
+               grad_norm_cpu=cpu[0]["grad_norm"],
+               grad_norm_card=card[0]["grad_norm"], launches=counts)
+    emit(rec, log)
+    del init, cpu, card, card2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_resume(dev, args, log):
+    """granite-3-2b's width at TRAIN_CHECK_LAYERS layers in bf16: steps 0
+    to TRAIN_RESUME_SAVE, an async save, a restore into a state drawn from
+    another seed, then on to TRAIN_RESUME_END, against the same steps run
+    uninterrupted: every parameter, moment and the step bit for bit.  The
+    phase runs with ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``; the two runs are one process on one card with the
+    same shapes, so cuBLAS picks the same kernels for both."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    rec = {"phase": "train_resume", "arch": cfg.name,
+           "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "save_after_step": TRAIN_RESUME_SAVE,
+           "last_step": TRAIN_RESUME_END,
+           "deterministic": "use_deterministic_algorithms(True, "
+                            "warn_only=True)"}
+    opt = _train_opt()
+    pipe = _train_pipe(cfg, dev)
+    step_fn = TS.make_train_step(cfg, opt)
+
+    def fresh(seed):
+        params = M.init_params(cfg, seed=seed, device=dev)
+        return TS.TrainState(params, opt.init(params))
+
+    def steps(state, first, last):
+        for s in range(first, last + 1):
+            state, _ = step_fn(state, _on(pipe.batch(s), dev))
+        return state
+
+    ckpt = tempfile.mkdtemp(prefix="train_resume_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole = steps(fresh(args.seed), 0, TRAIN_RESUME_END)
+        want = [t.detach().clone() for _, t in CK._flatten(whole)]
+        del whole
+        state = steps(fresh(args.seed), 0, TRAIN_RESUME_SAVE)
+        t0 = time.perf_counter()
+        writer = CK.save(ckpt, TRAIN_RESUME_SAVE, state,
+                         extra={"arch": cfg.name})
+        rec["save_host_copy_s"] = time.perf_counter() - t0
+        del state
+        writer.join()
+        rec["save_s"] = time.perf_counter() - t0
+        latest = CK.latest_step(ckpt)
+        t0 = time.perf_counter()
+        state = CK.restore(ckpt, latest, fresh(args.seed + 1))
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        state = steps(state, latest + 1, TRAIN_RESUME_END)
+        got = [t.detach() for _, t in CK._flatten(state)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec["checkpoint_bytes"] = sum(
+        os.path.getsize(os.path.join(ckpt, f"step_{latest:08d}", f))
+        for f in os.listdir(os.path.join(ckpt, f"step_{latest:08d}")))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(got, want)]
+    rec.update(tensors=len(want), restored_from=latest,
+               equal_tensors=sum(torch.equal(a, b)
+                                 for a, b in zip(got, want)),
+               max_abs_diff=max(diffs))
+    emit(rec, log)
+    check(rec["equal_tensors"] == len(want),
+          f"train_resume: {len(want) - rec['equal_tensors']} tensors differ "
+          f"from the uninterrupted run (max |diff| {max(diffs)})")
+    del state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_smoke(dev, log):
+    """One float32 step (TF32 off) of every architecture's smoke config,
+    the card against the CPU from the same weights (whisper-tiny with
+    stub frames; the MoE configs at a dropless capacity, so that a tie
+    cannot flip which pairs are dropped)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = _train_opt()
+    out = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=1.001 * cfg.n_experts / cfg.top_k)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(2, cfg.vocab, (4, 33)).astype(np.int32)
+        batch = {"tokens": np.ascontiguousarray(toks[:, :-1]),
+                 "labels": np.ascontiguousarray(toks[:, 1:])}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        cpu = _one_step(cfg, opt, M.init_params(cfg, 0, "cpu"), batch, "cpu")
+        card, counts = driven(lambda: _one_step(
+            cfg, opt, M.init_params(cfg, 0, "cpu"), batch, dev))
+        rec = {"phase": "train_smoke", "arch": cfg.name,
+               "family": cfg.family, "loss_cpu": cpu[0]["loss"],
+               "loss_card": card[0]["loss"], "launches": counts,
+               **_check_step(f"train_smoke {arch}: card vs CPU", card, cpu,
+                             cpu[0]["lr"])}
+        emit(rec, log)
+        out[arch] = rec
+    return out
+
 
 def phase_driver(log):
     """The serve driver as a user runs it, with ``--doctor`` and an RMI
@@ -2215,11 +2662,17 @@ def phase_driver(log):
     with ``--executor sync``, routed with ``--shards 2 --replicas 2``, and
     with ``--autotune-daemon --autotune-store`` (a temporary directory);
     then in token mode at the full width (no ``--smoke``) of each token
-    phase's arch (granite-3-2b, deepseek-moe-16b, mamba2-2.7b), 8 requests
-    of 8 new tokens.  Each must exit 0."""
+    phase's arch (granite-3-2b, deepseek-moe-16b, mamba2-2.7b,
+    whisper-tiny), 8 requests of 8 new tokens.  Then the train driver
+    (``python -m repro_torch.launch.train``): granite-3-2b at its full
+    width for TRAIN_STEPS steps with no checkpoint directory (a full-width
+    checkpoint is ~25 GB); and at its smoke width for 12 steps with a checkpoint every 5, then again
+    with ``--resume``, which must print ``resumed from step 10``.  Each
+    must exit 0 with a finite final loss, and the smoke run's must be
+    below its step 0's (the full width at the driver's peak lr does not
+    train in 20 steps: `phase_train`).  The runs go in DRIVER_WAVES,
+    the processes of a wave at once."""
     import tempfile
-
-    from repro_torch.configs import get
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2230,61 +2683,108 @@ def phase_driver(log):
     if os.path.exists(jsonl):
         os.remove(jsonl)
     store = tempfile.mkdtemp(prefix="autotune_store_")
+    ckpt = tempfile.mkdtemp(prefix="train_driver_")
     lookup = ["--mode", "lookup", "--doctor", "--spec",
               json.dumps(DRIVER_SPEC)]
-    runs = {"default": lookup,
-            "metrics_jsonl": [*lookup, "--metrics-jsonl", jsonl],
-            "sync": [*lookup, "--executor", "sync"],
-            "routed": [*lookup, "--shards", "2", "--replicas", "2"],
-            "autotune": [*lookup, "--autotune-daemon", "--autotune-store",
-                         store],
-            **{phase: ["--mode", "tokens", "--arch", arch, "--requests",
-                       str(TOKENS_REQUESTS), "--max-new", str(TOKENS_MAX_NEW)]
-               for phase, (arch, _) in TOKEN_PHASES.items()}}
+    smoke_train = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "12",
+                   "--ckpt-dir", ckpt, "--ckpt-every", "5"]
+    serve, train = "repro_torch.launch.serve", "repro_torch.launch.train"
+    runs = {"default": (serve, lookup),
+            "metrics_jsonl": (serve, [*lookup, "--metrics-jsonl", jsonl]),
+            "sync": (serve, [*lookup, "--executor", "sync"]),
+            "routed": (serve, [*lookup, "--shards", "2", "--replicas", "2"]),
+            "autotune": (serve, [*lookup, "--autotune-daemon",
+                                 "--autotune-store", store]),
+            **{phase: (serve, ["--mode", "tokens", "--arch", arch,
+                               "--requests", str(TOKENS_REQUESTS),
+                               "--max-new", str(TOKENS_MAX_NEW)])
+               for phase, (arch, _) in TOKEN_PHASES.items()},
+            "train": (train, ["--arch", TRAIN_ARCH, "--steps",
+                              str(TRAIN_STEPS)]),
+            "train_smoke_ckpt": (train, smoke_train),
+            "train_smoke_resume": (train, [*smoke_train, "--resume"])}
+    check(sorted(runs) == sorted(sum(DRIVER_WAVES, ())),
+          "every driver run is in one wave")
     out = {}
-    for label, extra in runs.items():
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *extra]
+    for wave in DRIVER_WAVES:
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
-        rec = {"phase": "driver", "run": label, "command": " ".join(cmd[1:]),
-               "rc": res.returncode, "seconds": time.perf_counter() - t0,
-               "summary": res.stdout.splitlines(),
-               "stderr_tail": res.stderr.splitlines()[-20:]}
-        if label == "metrics_jsonl":
-            with open(jsonl) as f:
-                docs = [json.loads(line) for line in f]
-            rec["jsonl_lines"] = len(docs)
-            rec["jsonl_last_lookups"] = (docs[-1]["lifetime"]["lookups"]
-                                         if docs else None)
-        emit(rec, log)
-        check(res.returncode == 0, f"serve driver ({label}) exited "
-              f"{res.returncode}")
-        if label in TOKEN_PHASES:
-            arch = TOKEN_PHASES[label][0]
-            n_tok = TOKENS_REQUESTS * TOKENS_MAX_NEW
-            check(f"serving {arch} ({get(arch).n_layers} "
-                  "layers" in res.stdout and f"{n_tok} tokens for "
-                  f"{TOKENS_REQUESTS} requests" in res.stdout,
-                  f"serve driver ({label}) did not serve the full model")
-            out[label] = rec
-            continue
-        executor = "sync" if label == "sync" else "async"
-        check(f"executor={executor}" in res.stdout,
-              f"serve driver ({label}) did not run the {executor} executor")
-        if label == "metrics_jsonl":
-            check(rec["jsonl_lines"] >= 1 and rec["jsonl_last_lookups"] > 0,
-                  f"serve driver wrote {rec['jsonl_lines']} JSONL lines")
-        if label == "routed":
-            check("'replicas': [2, 2]" in res.stdout
-                  and "over 2 shard(s)" in res.stdout,
-                  "serve driver (routed) did not serve 2 x 2 lanes")
-        if label == "autotune":
-            check("autotune: daemon=up" in res.stdout,
-                  "serve driver (autotune) daemon not up")
-        out[label] = rec
+        procs = {label: subprocess.Popen(
+            [sys.executable, "-m", runs[label][0], *runs[label][1]],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for label in wave}
+        try:
+            for label, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                _driver_checks(label, runs[label][0], subprocess.
+                               CompletedProcess(proc.args, proc.returncode,
+                                                stdout, stderr),
+                               t0, jsonl, log, out)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
     return out
+
+
+def _driver_checks(label, module, res, t0, jsonl, log, out):
+    """One driver run's record (its seconds from the start of its wave)
+    and checks (`phase_driver`)."""
+    import math
+
+    from repro_torch.configs import get
+
+    rec = {"phase": "driver", "run": label, "command": " ".join(res.args[1:]),
+           "rc": res.returncode, "seconds": time.perf_counter() - t0,
+           "summary": res.stdout.splitlines(),
+           "stderr_tail": res.stderr.splitlines()[-20:]}
+    if label == "metrics_jsonl":
+        with open(jsonl) as f:
+            docs = [json.loads(line) for line in f]
+        rec["jsonl_lines"] = len(docs)
+        rec["jsonl_last_lookups"] = (docs[-1]["lifetime"]["lookups"]
+                                     if docs else None)
+    emit(rec, log)
+    out[label] = rec
+    check(res.returncode == 0, f"{module} ({label}) exited "
+          f"{res.returncode}")
+    if module == "repro_torch.launch.train":
+        lines = res.stdout.splitlines()
+        check(lines and lines[-1].startswith("done: final loss"),
+              f"train driver ({label}) did not finish")
+        final = float(lines[-1].split()[-1])
+        check(math.isfinite(final), f"train driver ({label}): final "
+              f"loss {final}")
+        if label == "train_smoke_resume":
+            check(lines[0] == "resumed from step 10",
+                  f"train driver did not resume: {lines[:1]}")
+        elif label == "train_smoke_ckpt":
+            check(final < float(lines[0].split()[3]),
+                  f"train driver ({label}): loss did not fall")
+        return
+    if label in TOKEN_PHASES:
+        arch = TOKEN_PHASES[label][0]
+        n_tok = TOKENS_REQUESTS * TOKENS_MAX_NEW
+        check(f"serving {arch} ({get(arch).n_layers} "
+              "layers" in res.stdout and f"{n_tok} tokens for "
+              f"{TOKENS_REQUESTS} requests" in res.stdout,
+              f"serve driver ({label}) did not serve the full model")
+        return
+    executor = "sync" if label == "sync" else "async"
+    check(f"executor={executor}" in res.stdout,
+          f"serve driver ({label}) did not run the {executor} executor")
+    if label == "metrics_jsonl":
+        check(rec["jsonl_lines"] >= 1 and rec["jsonl_last_lookups"] > 0,
+              f"serve driver wrote {rec['jsonl_lines']} JSONL lines")
+    if label == "routed":
+        check("'replicas': [2, 2]" in res.stdout
+              and "over 2 shard(s)" in res.stdout,
+              "serve driver (routed) did not serve 2 x 2 lanes")
+    if label == "autotune":
+        check("autotune: daemon=up" in res.stdout,
+              "serve driver (autotune) daemon not up")
 
 
 def main(argv=None) -> int:
@@ -2368,6 +2868,10 @@ def main(argv=None) -> int:
         rec["launches"]["bounded_search"]
         for rec in [*(tokens[p] for p in TOKEN_PHASES),
                     *tokens["smoke"].values()])
+    train = {"train": phase_train(dev, args, log),
+             "train_check": phase_train_check(dev, args, log),
+             "train_resume": phase_train_resume(dev, args, log),
+             "train_smoke": phase_train_smoke(dev, log)}
     driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
     for k in kernels:
@@ -2380,8 +2884,8 @@ def main(argv=None) -> int:
           "bounded_search_int32": b1_int32["launches"]}, log)
     summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
                "build_wall_s": build_s, "cells": cells, "tokens": tokens,
-               "driver": driver, "total_s": time.perf_counter() - t_start,
-               "log": log}
+               "train": train, "driver": driver,
+               "total_s": time.perf_counter() - t_start, "log": log}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(summary, f, indent=1)

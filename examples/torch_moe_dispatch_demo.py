@@ -34,6 +34,7 @@ cfg = dataclasses.replace(get_smoke("deepseek-moe-16b"), n_experts=16,
                           top_k=2, dtype="float32")
 params = M.init_params(cfg, seed=0, device=args.device)
 layer = params.blocks[0].moe
+torch.set_grad_enabled(False)         # a serving demo: no autograd graph
 dev = layer["router"].device
 x = torch.randn((512, cfg.d_model), generator=torch.Generator(
     device=dev).manual_seed(1), device=dev)

@@ -3,7 +3,8 @@ into the port.
 
 The reference keeps its state as arrays; handed over as numpy, the same
 model becomes a port `IndexBuild` (or, for the LM, a port `Decoder`:
-`decoder_from_reference`).  Error bounds are re-verified through
+`decoder_from_reference`, or `encdec_from_reference`; a training run's
+state: `train_state_from_reference`).  Error bounds are re-verified through
 the port's own arithmetic, never copied: the reference's table is valid
 only under the arithmetic that verified it.  Integer state (radix tables,
 B-tree levels, hash slots) carries no error of its own and is carried as
@@ -19,7 +20,7 @@ import torch
 from repro_torch.core import (base, btree, hashmap, pgm, radix_spline, rbs,
                               rmi)
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -127,6 +128,48 @@ def from_reference(name: str, ref_state, keys: np.ndarray,
     return fn(ref_state, keys, hyper, device=device)
 
 
+def _reference_leaf(model, name: str, tree) -> np.ndarray:
+    """The reference leaf behind the port's parameter ``name``, as
+    float32 numpy (bf16 leaves come as float32, exactly).
+
+    Decoder: ``pro.{i}.*`` is ``pro{i}``; ``blocks.{n}.*`` is the
+    reference's ``blocks.sub{j}`` at layer-axis index ``i`` for ``n = i *
+    U + j`` (a unit of ``U`` blocks).  EncDec: ``enc.{i}.*`` and
+    ``dec.{i}.*`` are ``enc``/``dec`` at layer-axis index ``i``.  Every
+    other name is the same path in the tree."""
+    parts = name.split(".")
+    layer = None
+    if parts[0] == "blocks":
+        layer, j = divmod(int(parts[1]), model.unit_len)
+        parts = ["blocks", f"sub{j}", *parts[2:]]
+    elif parts[0] == "pro":
+        parts = [f"pro{parts[1]}", *parts[2:]]
+    elif parts[0] in ("enc", "dec"):
+        layer = int(parts[1])
+        parts = [parts[0], *parts[2:]]
+    for k in parts:
+        tree = tree[k]
+    arr = np.asarray(tree, np.float32)
+    return arr if layer is None else arr[layer]
+
+
+def _from_reference(model, tree, dev, what: str):
+    """Every parameter of the meta-device ``model`` from ``tree``; every
+    leaf of the tree must be used."""
+    state, used = {}, 0
+    for name, p in model.named_parameters():
+        arr = _reference_leaf(model, name, tree)
+        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
+                                                         dtype=p.dtype)
+        used += arr.size
+    leaves = sum(np.asarray(a).size for a in _leaves(tree))
+    if used != leaves:
+        raise ValueError(f"reference tree has {leaves} values, the port's "
+                         f"{what} takes {used}")
+    model.load_state_dict(state, assign=True)
+    return model
+
+
 def decoder_from_reference(cfg: ModelConfig, params_np,
                            device=None) -> transformer.Decoder:
     """The port's decoder with the reference's weights.
@@ -139,31 +182,54 @@ def decoder_from_reference(cfg: ModelConfig, params_np,
     + j]`` for a unit of ``U`` blocks.  Every parameter must be in the
     tree, and every leaf of the tree must be used.
     """
-    dev = resolve_device(device)
-    model = transformer.Decoder(cfg, device="meta")
-    u = model.unit_len
-    state, used = {}, 0
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            i, j = divmod(int(parts[1]), u)
-            arr = np.asarray(params_np["blocks"][f"sub{j}"][parts[2]][parts[3]],
-                             np.float32)[i]
-        elif parts[0] == "pro":
-            arr = np.asarray(params_np[f"pro{parts[1]}"][parts[2]][parts[3]],
-                             np.float32)
-        else:
-            arr = np.asarray(params_np[parts[0]][parts[1]], np.float32)
-        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
-                                                         dtype=p.dtype)
-        used += arr.size
-    leaves = sum(np.asarray(a).size for a in _leaves(params_np))
-    if used != leaves:
-        raise ValueError(f"reference tree has {leaves} values, the port's "
-                         f"{cfg.name} decoder takes {used}")
-    model.load_state_dict(state, assign=True)
-    return model
+    return _from_reference(transformer.Decoder(cfg, device="meta"),
+                           params_np, resolve_device(device),
+                           f"{cfg.name} decoder")
 
+
+def encdec_from_reference(cfg: ModelConfig, params_np,
+                          device=None) -> encdec.EncDec:
+    """The port's encoder-decoder with the reference's weights: as
+    `decoder_from_reference`, the vmapped layer axis of ``enc`` and
+    ``dec`` unstacked into ``enc[i]`` and ``dec[i]``."""
+    return _from_reference(encdec.EncDec(cfg, device="meta"), params_np,
+                           resolve_device(device), f"{cfg.name} encdec")
+
+
+def model_from_reference(cfg: ModelConfig, params_np, device=None):
+    """`encdec_from_reference` or `decoder_from_reference`, by family."""
+    if cfg.family == "encdec":
+        return encdec_from_reference(cfg, params_np, device)
+    return decoder_from_reference(cfg, params_np, device)
+
+
+def train_state_from_reference(cfg: ModelConfig, state_np, device=None):
+    """The port's `TrainState` continuing a reference run.
+
+    ``state_np`` is the reference's ``TrainState`` as numpy: ``params``
+    (its tree) and ``opt`` (``AdamWState(step, m, v)``, ``m``/``v`` trees
+    shaped as ``params``).  The moments come in the port's parameter
+    order, float32; ``step`` as an int32 scalar."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+    params = model_from_reference(cfg, state_np.params, dev)
+    step, m_np, v_np = state_np.opt
+
+    def moments(tree):
+        return [torch.from_numpy(np.array(_reference_leaf(params, name,
+                                                          tree))).to(dev)
+                for name, _ in params.named_parameters()]
+
+    m, v = moments(m_np), moments(v_np)
+    for tree, got in ((m_np, m), (v_np, v)):
+        if sum(np.asarray(a).size for a in _leaves(tree)) != sum(
+                t.numel() for t in got):
+            raise ValueError("reference moments do not match the params")
+    step_t = torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev)
+    return TrainState(params, AdamWState(step_t, m, v))
 
 def _leaves(tree):
     if isinstance(tree, dict):

@@ -1,1 +1,1 @@
-"""Datasets: the SOSD surrogates."""
+"""Datasets (SOSD surrogates) and the LM data pipeline."""

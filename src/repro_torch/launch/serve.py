@@ -8,9 +8,9 @@ batching engine, greedy decoding, weights drawn from a seed):
         --requests 8 --max-new 8
 
 runs at the architecture's full width on the CUDA card; ``--smoke`` takes
-its reduced config and ``--device cpu`` asks for the CPU.  Every decoder
-family is ported (dense, vlm, moe, ssm, hybrid); whisper-tiny (encdec)
-exits 2 naming ROADMAP item 13.
+its reduced config and ``--device cpu`` asks for the CPU.  Every family
+is served: dense, vlm, moe, ssm, hybrid and encdec (whisper-tiny, whose
+cached encoder states stay zero, as the reference's engine leaves them).
 
 Lookup mode:
 
@@ -288,15 +288,9 @@ def main(argv=None) -> None:
     if args.max_batch is None:
         args.max_batch = 4
     from repro_torch.configs import ARCHS, get, get_smoke
-    from repro_torch.models import transformer
     if args.arch not in ARCHS:
         ap.error(f"unknown --arch {args.arch!r}; known: {sorted(ARCHS)}")
-    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
-    try:
-        transformer.stack_plan(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
-    run_tokens(args, cfg)
+    run_tokens(args, get_smoke(args.arch) if args.smoke else get(args.arch))
 
 
 if __name__ == "__main__":

@@ -14,8 +14,10 @@ in float32 whatever the model's type, as there.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
@@ -144,6 +146,7 @@ def attention(cfg: ModelConfig, p, x, positions, causal: bool = True):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+@torch.no_grad()
 def attention_kv(cfg: ModelConfig, p, x, positions, cache_k, cache_v,
                  cache_len):
     """Decode step: one new token per sequence attending to the cache.
@@ -154,7 +157,8 @@ def attention_kv(cfg: ModelConfig, p, x, positions, cache_k, cache_v,
     attention runs over the whole cache with ``k_pos <= cache_len``.  A
     row whose ``cache_len`` is ``S_max`` or more writes nothing, as the
     reference's ``.at[].set`` drops an index out of range; the write is a
-    select at a clamped index, so the card never syncs on it.
+    select at a clamped index, so the card never syncs on it.  A serving
+    op: it builds no autograd graph.
     """
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x, positions)
@@ -181,6 +185,33 @@ def attention_kv(cfg: ModelConfig, p, x, positions, cache_k, cache_v,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
 
 
+def cross_attention(cfg: ModelConfig, p, x, enc_out):
+    """Encoder-decoder cross attention (whisper): every query over every
+    encoder state, no mask, one block of ``_pick_chunk(S, 512)`` queries
+    at a time (the reference's ``lax.map``); scores and softmax in
+    float32."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, sq = x.shape[0], x.shape[1]
+    kf, vf = k.float(), v.float()
+    outs = []
+    ck = _pick_chunk(sq, 512)
+    for start in range(0, sq, ck):
+        qb = q[:, start:start + ck]
+        qg = qb.reshape(b, qb.shape[1], nkv, nh // nkv, hd)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), kf) * (hd ** -0.5)
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bgrqk,bkgd->bgrqd", w, vf)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qb.shape[1], nh,
+                                                         hd))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -191,12 +222,28 @@ def silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype):
+    """``sqrt(2/pi)`` and 0.044715 rounded to ``dtype``, as Python floats
+    (no device copy, so a decode step that uses them can be captured)."""
+    return tuple(float(torch.tensor(v, dtype=dtype))
+                 for v in (math.sqrt(2 / math.pi), 0.044715))
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default (tanh) form, each step rounded to ``x``'s
+    type and its constants too, as it lowers: in bf16 `F.gelu`, which
+    rounds once, differs from it on ~40% of inputs, this on none."""
+    c, k = _gelu_constants(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def mlp(cfg: ModelConfig, p, x):
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.act == "swiglu":
         h = silu(torch.einsum("bsd,df->bsf", x, p["wg"])) * h
     else:
-        h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+        h = gelu(h)
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 

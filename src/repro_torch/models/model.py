@@ -1,42 +1,51 @@
 """Unified model API, as the reference's `repro.models.model`:
 
-  init_params(cfg, seed, device)      the `Decoder` module, weights from a seed
-  forward(cfg, params, batch)         logits + aux (prefill)
+  init_params(cfg, seed, device)      the model (`transformer.Decoder`, or
+                                      `encdec.EncDec` for the encdec
+                                      family), weights from a seed
+  forward(cfg, params, batch)         logits + aux (train / prefill)
   loss_fn(cfg, params, batch)         scalar next-token loss + MoE aux
-                                      (forward only)
-  decode_step(cfg, params, cache, t)  one-token serve step
+  decode_step(cfg, params, cache, t)  one-token serve step (no autograd)
   cache_shapes / init_cache           decode-state shapes (meta) / zeros
 
-Every decoder family is ported (dense, vlm, moe, ssm, hybrid); encdec
-raises `NotImplementedError` naming ROADMAP item 13.  ``param_specs``,
-``cache_specs`` and ``input_specs`` are the reference's sharding and
-dry-run surface and wait for the port's ``dist/``.
+Every family of the reference is ported: dense, vlm, moe, ssm, hybrid
+and encdec, whose ``forward`` reads ``batch["frames"]``.  The weights
+are trainable (`repro_torch.train`).  ``param_specs``, ``cache_specs``
+and ``input_specs`` are the reference's sharding and dry-run surface and
+wait for the port's ``dist/``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> T.Decoder:
-    """The decoder with weights drawn from ``seed`` on ``device`` (``None``
+def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """The model with weights drawn from ``seed`` on ``device`` (``None``
     means the CUDA card; ``"meta"`` allocates nothing)."""
-    T.stack_plan(cfg)
+    if cfg.family != "encdec":
+        T.stack_plan(cfg)
     dev = resolve_device(device)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev).manual_seed(int(seed))
+    if cfg.family == "encdec":
+        return E.EncDec(cfg, gen, dev)
     return T.Decoder(cfg, gen, dev)
 
 
-def forward(cfg: ModelConfig, params: T.Decoder, batch):
+def forward(cfg: ModelConfig, params, batch):
+    if cfg.family == "encdec":
+        return E.encdec_forward(cfg, params, batch["frames"],
+                                batch["tokens"])
     return T.decoder_forward(cfg, params, batch["tokens"])
 
 
-def loss_fn(cfg: ModelConfig, params: T.Decoder, batch):
+def loss_fn(cfg: ModelConfig, params, batch):
     """Next-token cross entropy (+ MoE aux) with float32 logits math."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
@@ -49,14 +58,18 @@ def loss_fn(cfg: ModelConfig, params: T.Decoder, batch):
     return loss + aux
 
 
-def decode_step(cfg: ModelConfig, params: T.Decoder, cache, tokens,
-                active=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, active=None):
     """One token a row; ``active`` (bool ``[B]``) limits which rows'
-    recurrent state advances (`transformer.decoder_decode`)."""
+    recurrent state advances (`transformer.decoder_decode`; the encdec
+    family has none)."""
+    if cfg.family == "encdec":
+        return E.encdec_decode(cfg, params, cache, tokens)
     return T.decoder_decode(cfg, params, cache, tokens, active)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
+    if cfg.family == "encdec":
+        return E.encdec_cache_shapes(cfg, batch, s_max)
     return T.init_cache_shapes(cfg, batch, s_max)
 
 

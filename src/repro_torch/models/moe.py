@@ -1,8 +1,7 @@
 """Mixture-of-Experts FFN with the sorted (learned-index style) dispatch.
 
-The reference's `repro.models.moe` in plain torch, forward only (the port
-serves; the reference's gather-only custom VJPs are training's, ROADMAP
-item 13).  Dispatch modes (``cfg.moe_dispatch``):
+The reference's `repro.models.moe` in plain torch.  Dispatch modes
+(``cfg.moe_dispatch``):
 
   dense    every expert runs every token and the router's weights select
            the outputs: E/k times the useful work, the baseline.
@@ -13,6 +12,13 @@ item 13).  Dispatch modes (``cfg.moe_dispatch``):
            stack.  Pairs past an expert's capacity ``C`` are dropped.
 
 Both share the router and its losses (Switch load balance + router z).
+
+Gathers only.  The sorted dispatch moves rows between token, sorted and
+slot order with four permutations (`SortedToSlots`, `SlotsToSorted`,
+`TokensToSorted`, `SortedToTokens`), each an ``autograd.Function`` whose
+backward is the mirror gather, as the reference's custom VJPs pin it
+(`src/repro/models/moe.py:129-219`): autograd would otherwise transpose a
+gather into a scatter-add.
 
 Ties.  The reference's ``jnp.argsort`` is stable, so pairs routed to one
 expert keep token order and, under capacity, the earliest tokens are
@@ -91,6 +97,81 @@ def _rows(x, index):
     return torch.gather(x, 1, index[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _pad_row(x):
+    """A zero row after the last of axis 1."""
+    return F.pad(x, (0, 0, 0, 1))
+
+
+class SortedToSlots(torch.autograd.Function):
+    """``[G, J+1, D]`` sorted rows (row J zero) -> ``[G, S, D]`` slots;
+    backward: the slots' cotangent gathered back by ``flat_slot``, zero
+    where ``keep`` is false, a zero pad row."""
+
+    @staticmethod
+    def forward(ctx, vs_pad, inv_slot, flat_slot, keep):
+        ctx.save_for_backward(flat_slot, keep)
+        return _rows(vs_pad, inv_slot)
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat_slot, keep = ctx.saved_tensors
+        d = _rows(ct, flat_slot) * keep[..., None].to(ct.dtype)
+        return _pad_row(d), None, None, None
+
+
+class SlotsToSorted(torch.autograd.Function):
+    """``[G, S, D]`` slots -> ``[G, J, D]`` sorted rows (dropped rows
+    zero); backward: the cotangent, masked and padded, gathered by
+    ``inv_slot``."""
+
+    @staticmethod
+    def forward(ctx, ys, inv_slot, flat_slot, keep):
+        ctx.save_for_backward(inv_slot, keep)
+        return _rows(ys, flat_slot) * keep[..., None].to(ys.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        inv_slot, keep = ctx.saved_tensors
+        ct_pad = _pad_row(ct * keep[..., None].to(ct.dtype))
+        return _rows(ct_pad, inv_slot), None, None, None
+
+
+class TokensToSorted(torch.autograd.Function):
+    """``[G, T, D]`` tokens -> ``[G, J = T*k, D]`` sorted rows; backward:
+    the cotangent gathered back to (token, choice) order by ``inv_perm``
+    and summed over the ``k`` choices."""
+
+    @staticmethod
+    def forward(ctx, k, xg, tok_sorted, inv_perm):
+        ctx.k = k
+        ctx.save_for_backward(inv_perm)
+        return _rows(xg, tok_sorted)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv_perm,) = ctx.saved_tensors
+        g, j, d = ct.shape
+        un = _rows(ct, inv_perm).reshape(g, j // ctx.k, ctx.k, d)
+        return None, un.sum(2), None, None
+
+
+class SortedToTokens(torch.autograd.Function):
+    """``[G, J, D]`` sorted rows -> ``[G, T, D]`` tokens, the ``k``
+    choices of a token summed; backward: the cotangent gathered by
+    ``tok_sorted``."""
+
+    @staticmethod
+    def forward(ctx, k, vs, tok_sorted, inv_perm):
+        ctx.save_for_backward(tok_sorted)
+        g, j, d = vs.shape
+        return _rows(vs, inv_perm).reshape(g, j // k, k, d).sum(2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tok_sorted,) = ctx.saved_tensors
+        return None, _rows(ct, tok_sorted), None, None
+
+
 def sorted_dispatch_plan(cfg: ModelConfig, top_i):
     """The sorted dispatch's index arithmetic for top-k ids ``[T, k]``
     (one group): a dict of ``order``, ``inv_perm``, ``e_sorted``,
@@ -131,20 +212,21 @@ def _dispatch_sorted(cfg: ModelConfig, p, x2d):
     plan = sorted_dispatch_plan(cfg, top_i)
     cap = plan["cap"]
     p_sorted = torch.gather(top_p.reshape(1, t * k), -1, plan["order"])
-    keep = plan["keep"][..., None]
+
+    slots = plan["inv_slot"], plan["flat_slot"], plan["keep"]
+    perm = plan["tok_sorted"], plan["inv_perm"]
 
     # dispatch: tokens -> sorted -> slots, a zero row for the empty slots
-    xs_sorted = _rows(x2d.reshape(1, t, d), plan["tok_sorted"])
-    xs_pad = F.pad(xs_sorted, (0, 0, 0, 1))
-    xs = _rows(xs_pad, plan["inv_slot"]).reshape(1, e, cap, d)
+    xs_sorted = TokensToSorted.apply(k, x2d.reshape(1, t, d), *perm)
+    xs = SortedToSlots.apply(_pad_row(xs_sorted), *slots).reshape(
+        1, e, cap, d)
 
     ys = _expert_ffn(cfg, p, xs)
 
     # combine: slots -> sorted (weighted, dropped rows zero) -> tokens
-    ys_sorted = _rows(ys.reshape(1, e * cap, d), plan["flat_slot"])
-    ys_sorted = ys_sorted * keep.to(ys_sorted.dtype)
+    ys_sorted = SlotsToSorted.apply(ys.reshape(1, e * cap, d), *slots)
     ys_sorted = ys_sorted * p_sorted[..., None].to(ys_sorted.dtype)
-    out = _rows(ys_sorted, plan["inv_perm"]).reshape(t, k, d).sum(1)
+    out = SortedToTokens.apply(k, ys_sorted, *perm).reshape(t, d)
     return out, aux
 
 

@@ -16,10 +16,11 @@ Here each block is a `Block`, the prologue is ``pro[i]`` and the scanned
 units are flattened, in layer order, into ``blocks``: block ``i * U + j``
 is the reference's ``params["blocks"][f"sub{j}"]`` at layer-axis index
 ``i`` for a unit of ``U`` blocks (`repro_torch.convert.
-decoder_from_reference`).  The scan is a loop.  The encdec family raises
-`NotImplementedError`: it waits for ROADMAP item 13.  Weights are made
-with an explicit ``torch.Generator`` at the reference's scales; they need
-no gradient (the port serves; training is a later slice).
+decoder_from_reference`).  The scan is a loop, each unit of it
+recomputed in the backward pass as ``cfg.remat`` asks (`remat`).  The
+encdec family is `repro_torch.models.encdec`.  Weights are made with an
+explicit ``torch.Generator`` at the reference's scales and are trainable;
+a decode step builds no autograd graph.
 
 The decode cache mirrors the reference's tree: ``{"blocks": {"sub{j}":
 ...}, "pro{i}": ..., "len"}``, where an attention block holds ``k``/``v``
@@ -30,10 +31,12 @@ step writes every one of them in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as S
@@ -47,9 +50,8 @@ def stack_plan(cfg: ModelConfig):
     """``(prologue, scan_unit, n_scan)`` as in the reference: lists of
     ``(mixer, ffn, d_ff)``."""
     if cfg.family not in SUPPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP item 13); the port runs {SUPPORTED_FAMILIES}")
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family has no "
+                         f"decoder stack; it runs {SUPPORTED_FAMILIES}")
     if cfg.family == "ssm":
         return [], [("ssm", "none", 0)], cfg.n_layers
     if cfg.hybrid_period:
@@ -80,7 +82,7 @@ class _Init:
         self.gen, self.device = generator, device
 
     def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=False)
+        return nn.Parameter(t)
 
     def normal(self, shape, scale: float, dtype=None) -> nn.Parameter:
         dtype = dtype or self.dtype
@@ -126,6 +128,46 @@ def _mlp_params(cfg: ModelConfig, init: _Init, f: int) -> nn.ParameterDict:
         mlp["wg"] = init.normal((d, f), d ** -0.5)
     mlp["wo"] = init.normal((f, d), f ** -0.5)
     return nn.ParameterDict(mlp)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``checkpoint_dots_with_no_batch_dims``: keep the
+    output of a product with no batch dimension (a weight product; einsum
+    lowers it to ``mm`` or a ``bmm`` of batch 1), recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(mode: str, fn):
+    """``fn`` recomputed in the backward pass, as the reference's `_remat`:
+    ``"none"`` saves every activation, ``"full"`` only ``fn``'s inputs,
+    ``"dots"`` also the products with no batch dimension.  The values are
+    ``fn``'s either way.  With autograd off it is ``fn`` itself."""
+    if mode not in ("none", "dots", "full"):
+        raise ValueError(f"remat {mode!r}: none, dots or full")
+    if mode == "none":
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _embed_params(cfg: ModelConfig, init: _Init) -> nn.ParameterDict:
+    s = cfg.d_model ** -0.5
+    emb = {"tok": init.normal((cfg.vocab_padded, cfg.d_model), s)}
+    if not cfg.tie_embeddings:
+        emb["head"] = init.normal((cfg.d_model, cfg.vocab_padded), s)
+    return nn.ParameterDict(emb)
 
 
 def _commit(dst: torch.Tensor, new: torch.Tensor, active):
@@ -202,11 +244,7 @@ class Decoder(nn.Module):
         pro, unit, n_scan = stack_plan(cfg)
         init = _Init(cfg, generator, torch.device(device or "cpu"))
         self.cfg = cfg
-        s = cfg.d_model ** -0.5
-        emb = {"tok": init.normal((cfg.vocab_padded, cfg.d_model), s)}
-        if not cfg.tie_embeddings:
-            emb["head"] = init.normal((cfg.d_model, cfg.vocab_padded), s)
-        self.embed = nn.ParameterDict(emb)
+        self.embed = _embed_params(cfg, init)
         self.pro = nn.ModuleList(Block(cfg, init, *spec) for spec in pro)
         self.unit_len = len(unit)
         self.blocks = nn.ModuleList(Block(cfg, init, *unit[j])
@@ -224,13 +262,24 @@ class Decoder(nn.Module):
 def decoder_forward(cfg: ModelConfig, params: Decoder, tokens,
                     causal: bool = True):
     """tokens [B, S] -> (logits [B, S, V], aux loss, a float32 scalar:
-    the MoE layers' sum)."""
+    the MoE layers' sum).  Each scanned unit is one `remat` unit."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = L.embed(cfg, params.embed, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for blk in (*params.pro, *params.blocks):
+    for blk in params.pro:
         x, aux = blk(cfg, x, positions, aux, causal)
+    u = params.unit_len
+
+    def unit(i):
+        def body(x, aux):
+            for blk in params.blocks[i * u:(i + 1) * u]:
+                x, aux = blk(cfg, x, positions, aux, causal)
+            return x, aux
+        return remat(cfg.remat, body)
+
+    for i in range(len(params.blocks) // u):
+        x, aux = unit(i)(x, aux)
     x = L.norm(cfg, x, params.final_norm)
     return L.unembed(cfg, params.embed, x), aux
 
@@ -267,7 +316,7 @@ def recurrent_state(cache: Dict):
     stacks."""
     out = []
     for name, sub in cache.items():
-        if name == "len":
+        if not isinstance(sub, dict):       # len; the encdec cache's leaves
             continue
         subs = sub.values() if name == "blocks" else (sub,)
         for c in subs:
@@ -276,6 +325,7 @@ def recurrent_state(cache: Dict):
     return out
 
 
+@torch.no_grad()
 def decoder_decode(cfg: ModelConfig, params: Decoder, cache: Dict, tokens,
                    active: Optional[torch.Tensor] = None):
     """One decode step.  tokens [B, 1]; returns (logits [B, V], cache).

@@ -16,6 +16,11 @@ an admitted slot's state is zeroed, and a step advances only the rows of
 the slots it serves: the filling slot in a prefill step, the active ones
 in a decode step.  So a request's tokens do not depend on what else is
 batched with it.
+
+The encdec family (whisper-tiny) decodes against cached encoder states
+(``enc_out``), which the engine leaves at zero, as the reference's does:
+it runs no encoder pass, and an admitted slot has no state to reset.
+Every step runs with no autograd graph (`models.model.decode_step`).
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ class Request:
 
 
 class ServeEngine:
-    """Serves ``params`` (a `models.model.init_params` decoder) on
+    """Serves ``params`` (a `models.model.init_params` model) on
     ``device`` (``None``: the CUDA card), where the params must lie."""
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,

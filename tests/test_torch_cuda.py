@@ -916,10 +916,12 @@ def _serve_smoke(cfg, params, dev, prompts, one_at_a_time=False, **kw):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b",
-                                  "jamba-1.5-large-398b", "mixtral-8x22b"])
+                                  "jamba-1.5-large-398b", "mixtral-8x22b",
+                                  "whisper-tiny"])
 def test_smoke_engines_of_the_other_families_emit_the_cpu_tokens(card, arch):
-    """The moe, ssm and hybrid engines in float32 with TF32 off: greedy
-    tokens on the card equal the CPU's, and the slot index runs B1."""
+    """The moe, ssm, hybrid and encdec engines in float32 with TF32 off:
+    greedy tokens on the card equal the CPU's, and the slot index runs
+    B1."""
     from repro_torch.models import model as M
 
     cfg = _smoke_f32(arch)
@@ -972,3 +974,154 @@ def test_recurrent_state_stays_in_its_slot_on_the_card(card, arch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert batched == alone
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+def _train_batch(cfg, dev, seed=0, b=4, s=32):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(2, cfg.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b",
+                                  "mamba2-2.7b", "whisper-tiny"])
+def test_smoke_train_step_on_the_card_equals_the_cpu(card, arch):
+    """Two float32 steps (TF32 off) from the same weights: loss, grad norm
+    and lr within 1e-5 relative; the first gradient within ``1e-5 G +
+    1e-4 |g|`` (G the largest gradient element); every parameter within
+    twice the summed learning rates (AdamW normalizes a gradient at
+    rounding-noise level, such as a key bias's, to a step anywhere in
+    [-1, 1]: `chip_smoke.py`'s train_check tolerance)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    cfg = _smoke_f32(arch)
+    if cfg.n_experts:            # dropless: a tie cannot flip a drop
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=1.001 * cfg.n_experts / cfg.top_k)
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=1, total=4))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for dev in ("cpu", card):
+            model = M.init_params(cfg, seed=0, device="cpu").to(dev)
+            grads = [g.cpu() for g in torch.autograd.grad(
+                M.loss_fn(cfg, model, _train_batch(cfg, dev)),
+                list(model.parameters()))]
+            state = TS.TrainState(model, opt.init(model))
+            step = TS.make_train_step(cfg, opt)
+            metrics = []
+            for s in range(2):
+                state, m = step(state, _train_batch(cfg, dev, seed=s))
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs.append((metrics, [p.detach().cpu()
+                                   for p in model.parameters()], grads))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (want, pw, gw), (got, pg, gg) = runs
+    for a, b in zip(got, want):
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+    big = max(float(g.abs().max()) for g in gw)
+    for a, b in zip(gg, gw):
+        assert float(((a - b).abs() - 1e-4 * b.abs()).max()) <= 1e-5 * big
+    lr_sum = sum(m["lr"] for m in want)
+    for a, b in zip(pg, pw):
+        assert float((a - b).abs().max()) <= 2 * lr_sum
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_of_card_tensors(card, dtype, tmp_path):
+    """A stepped state on the card, saved on a thread and restored into
+    one drawn from another seed: every tensor equal and on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), dtype=dtype)
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=1, total=4))
+
+    def state_of(seed):
+        model = M.init_params(cfg, seed=seed, device=card)
+        return TS.TrainState(model, opt.init(model))
+
+    state, _ = TS.make_train_step(cfg, opt)(state_of(0),
+                                            _train_batch(cfg, card))
+    want = [t.detach().clone() for _, t in CK._flatten(state)]
+    th = CK.save(str(tmp_path), 1, state)
+    th.join(timeout=120)
+    assert not th.is_alive()
+    got = CK.restore(str(tmp_path), 1, state_of(1))
+    for (_, a), b in zip(CK._flatten(got), want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_moe_functions_on_the_card(card):
+    """Each gather-only Function's forward and backward on the card equal
+    the CPU's (gathers exact, sums over k within 1e-6), and gradcheck
+    holds in float64."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe as MOE
+
+    cfg = dataclasses.replace(get_smoke("deepseek-moe-16b"), n_experts=4,
+                              top_k=2, capacity_factor=0.5)
+    rng = np.random.default_rng(0)
+    top_i = torch.from_numpy(np.stack(
+        [rng.choice(4, 2, replace=False, p=[0.55, 0.15, 0.15, 0.15])
+         for _ in range(24)]))
+    k, e = cfg.top_k, cfg.n_experts
+    plans = {d: MOE.sorted_dispatch_plan(cfg, top_i.to(d))
+             for d in ("cpu", card)}
+    cap, j = plans["cpu"]["cap"], plans["cpu"]["order"].shape[1]
+    assert not bool(plans["cpu"]["keep"].all())
+
+    def fns(plan):
+        slots = [plan[n] for n in ("inv_slot", "flat_slot", "keep")]
+        perm = [plan["tok_sorted"], plan["inv_perm"]]
+        return [
+            (lambda a: MOE.SortedToSlots.apply(MOE._pad_row(a), *slots),
+             (1, j, 5), False),
+            (lambda a: MOE.SlotsToSorted.apply(a, *slots), (1, e * cap, 5),
+             False),
+            (lambda a: MOE.TokensToSorted.apply(k, a, *perm), (1, j // k, 5),
+             True),
+            (lambda a: MOE.SortedToTokens.apply(k, a, *perm), (1, j, 5),
+             True)]
+
+    for n, ((fc, shape, sums), (fg, _, _)) in enumerate(
+            zip(fns(plans["cpu"]), fns(plans[card]))):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        outs = []
+        for f, dev in ((fc, "cpu"), (fg, card)):
+            xt = x.to(dev).requires_grad_()
+            y = f(xt)
+            ct = torch.ones_like(y) + torch.arange(
+                y.numel(), device=dev).reshape(y.shape) % 7
+            (dx,) = torch.autograd.grad(y, xt, ct)
+            outs.append((y.detach().cpu(), dx.cpu()))
+        (yc, dc), (yg, dg) = outs
+        if sums:
+            torch.testing.assert_close(yg, yc, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(dg, dc, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(yg, yc) and torch.equal(dg, dc), n
+        x64 = x.double().to(card).requires_grad_()
+        assert torch.autograd.gradcheck(fg, (x64,)), n

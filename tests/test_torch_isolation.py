@@ -60,7 +60,10 @@ print(json.dumps(sorted(m for m in sys.modules
     "repro_torch.serve.lookup.topology", "repro_torch.autotune",
     "repro_torch.autotune.store", "repro_torch.autotune.objective",
     "repro_torch.autotune.retuner", "repro_torch.models.model",
-    "repro_torch.serve.engine", "repro_torch.configs"])
+    "repro_torch.serve.engine", "repro_torch.configs",
+    "repro_torch.models.encdec", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
+    "repro_torch.launch.train"])
 def test_each_new_module_alone_loads_no_jax_and_no_reference(module):
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src)
@@ -164,3 +167,24 @@ def test_token_driver_refuses_the_cpu_unasked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "tok/s" not in out.stdout
+
+
+def test_training_refuses_the_cpu_unasked(no_card):
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.train.optimizer import AdamW
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_params(get_smoke("whisper-tiny"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TokenPipeline(PipelineConfig(vocab=64, seq_len=8, global_batch=2))
+    params = M.init_params(get_smoke("granite-3-2b"), device="cpu")
+    assert AdamW(lr=lambda s: 1e-3).init(params).step.device.type == "cpu"
+
+
+def test_train_driver_refuses_the_cpu_unasked():
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--smoke", "--steps", "1"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "loss" not in out.stdout

@@ -251,10 +251,52 @@ def test_forward_loss_and_chained_decode_steps(arch, dtype):
     assert cache["len"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_unported_families_name_item_13(arch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        M.init_params(configs.get_smoke(arch), device="cpu")
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_whisper_tiny_forward_loss_and_chained_decode_steps(dtype):
+    """The encdec family whole (`repro_torch.models.encdec`): logits and
+    loss on stub frames, then two decode steps from the reference
+    engine's cache (encoder states zero), logits and KV each step."""
+    rcfg = dataclasses.replace(rconfigs.get_smoke("whisper-tiny"),
+                               dtype=dtype)
+    cfg = dataclasses.replace(configs.get_smoke("whisper-tiny"), dtype=dtype)
+    rp = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    model = convert.encdec_from_reference(
+        cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), rp), "cpu")
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    labels = rng.integers(-1, cfg.vocab, (2, 12)).astype(np.int32)
+    fr, fp = _x((2, cfg.encoder_seq, cfg.d_model), dtype, seed=22)
+    rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "frames": fr}
+    pb = {"tokens": torch.from_numpy(toks).long(),
+          "labels": torch.from_numpy(labels), "frames": fp}
+    with torch.inference_mode():
+        logits, aux = M.forward(cfg, model, pb)
+        loss = M.loss_fn(cfg, model, pb)
+    _close(logits, jax.jit(lambda p, b: RM.forward(rcfg, p, b)[0])(rp, rb),
+           LOGITS_TOL[dtype])
+    assert float(aux) == 0.0
+    _close(loss, jax.jit(lambda p, b: RM.loss_fn(rcfg, p, b))(rp, rb),
+           LOGITS_TOL[dtype])
+
+    rcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                          RM.cache_shapes(rcfg, 2, 16))
+    cache = M.init_cache(cfg, 2, 16, "cpu")
+    assert {k: (tuple(t.shape), str(t.dtype).split(".")[1])
+            for k, t in cache.items()} == {
+        k: (s.shape, str(s.dtype))
+        for k, s in RM.cache_shapes(rcfg, 2, 16).items()}
+    step = jax.jit(lambda p, c, t: RM.decode_step(rcfg, p, c, t))
+    for i in range(2):
+        t = toks[:, i:i + 1]
+        rl, rcache = step(rp, rcache, jnp.asarray(t))
+        pl, cache = M.decode_step(cfg, model, cache, torch.from_numpy(t))
+        assert not pl.requires_grad
+        _close(pl, rl, LOGITS_TOL[dtype])
+        np.testing.assert_array_equal(cache["len"].numpy(),
+                                      np.asarray(rcache["len"]))
+        for k in ("k", "v"):
+            _close(cache[k], rcache[k], LOGITS_TOL[dtype])
 
 
 @pytest.mark.parametrize("arch", DECODERS)
@@ -367,7 +409,10 @@ def test_every_block_forward_and_decode_step(arch, dtype):
         rc["len"] = jnp.asarray(lens)
         ry, rc = RT.apply_block_decode(rcfg, rpb, dr, jnp.asarray(lens[:, None]),
                                        rc, mixer, ffn)
-        pc = {k: v[1] for k, v in c.items()}
+        # the port's own copies: a tensor from `torch.from_numpy` shares
+        # the numpy buffer, which `jnp.asarray` may alias on the CPU while
+        # the reference's dispatched step still reads it
+        pc = {k: v[1].clone() for k, v in c.items()}
         with torch.inference_mode():
             y = blk.decode(cfg, dp, torch.from_numpy(lens[:, None]), pc,
                            torch.from_numpy(lens))

@@ -258,7 +258,11 @@ def test_driver_serves_tokens_on_the_cpu(arch):
     assert "over 4 slots" in out.stdout
 
 
-def test_driver_refuses_the_encdec_family():
-    out = _driver("--smoke", "--device", "cpu", "--arch", "whisper-tiny")
-    assert out.returncode == 2
-    assert "item 13" in out.stderr
+def test_driver_serves_the_encdec_family():
+    """whisper-tiny, as the reference's driver serves it (its engine
+    decodes with the cached encoder states at zero)."""
+    out = _driver("--smoke", "--device", "cpu", "--requests", "4",
+                  "--max-new", "4", "--arch", "whisper-tiny")
+    assert out.returncode == 0, out.stderr
+    assert "serving whisper-tiny-smoke (4 layers" in out.stdout
+    assert "16 tokens for 4 requests" in out.stdout
