@@ -3,6 +3,7 @@
 and its training on one NVIDIA card.
 
     python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
+                          [--only dist]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain torch version bit for bit,
@@ -89,8 +90,17 @@ a step at 2 layers of that width in float32 on the card against the CPU
 and with 2 microbatches against 1 (``train_check``), a bf16 run saved,
 restored into a state from another seed and resumed, bit-identical to
 the uninterrupted run (``train_resume``), and one float32 step of every
-config's smoke width, the card against the CPU (``train_smoke``).  Last
-the serve driver ``python -m repro_torch.launch.serve --mode lookup
+config's smoke width, the card against the CPU (``train_smoke``).  Then
+data parallelism over NCCL at a world of every card: granite-3-2b at its
+full width through the train driver's dist path (``dist_train``: one
+rank a card, each holding the whole model and its block of every
+gradient and moment as the sharding rules place them; 6 steps at the
+lower lr with remat "none", whose losses and grad norms are held against
+the ``train`` phase's run at the same settings, bit for bit or within
+1e-5, with step p50, tokens/s and each rank's peak memory), and the int8
+compressed all-reduce and the GPipe
+schedule against their plain counterparts (``dist_collectives``, one
+process a rank).  Last the serve driver ``python -m repro_torch.launch.serve --mode lookup
 --doctor`` as a subprocess, at its defaults (the async executor), with
 ``--metrics-jsonl``, with ``--executor sync``, with ``--shards 2
 --replicas 2`` and with ``--autotune-daemon --autotune-store``, in token
@@ -99,7 +109,11 @@ mode at the full width of each token phase's arch, and the train driver
 with a checkpoint and a resume, at its smoke width (``driver``).
 One JSON line per phase; any failure exits nonzero.  The last line is the
 device summary ``{"ok": true, "device": {...}}``.  Full results go to
-``--out``.
+``--out``.  ``--only dist`` runs the device, build and dist phases alone
+on several cards (``dist_train`` at one rank, at every card and on one
+rank with a card's share of the batch: the second's losses and grad
+norms held against the first's within limits that the third must fail)
+and prints no ``kernels`` line.
 
 Kernel launches: each kernel wrapper counts the launches it makes, and a
 launch it makes while its stream is captured into a CUDA graph is counted
@@ -256,9 +270,34 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 #: fits the card's memory together (deepseek-moe-16b's ~33 GB in the
 #: first, the full-width train run's ~34 GB with granite's and mamba2's
 #: ~13 GB in the second), and a resume follows its save
+#: the train driver's full-width run in `driver`, cut from TRAIN_STEPS to
+#: leave the dist phases room in the time limit (`train` runs the
+#: full-width steps in process)
+DRIVER_TRAIN_STEPS = 6
 DRIVER_WAVES = (("default", "metrics_jsonl", "sync", "routed", "autotune",
                  "tokens_moe", "tokens_encdec", "train_smoke_ckpt"),
                 ("tokens", "tokens_ssm", "train", "train_smoke_resume"))
+#: data parallel (`dist_train`): granite-3-2b at its full width through
+#: the train driver on the dist path, one rank a card over NCCL, at the
+#: `train` phase's lower lr with remat "none": its losses are held
+#: against that run's first DIST_STEPS (the warm-up is 10 steps, so their
+#: lr does not depend on the run's length)
+DIST_STEPS = 6
+#: one rank must repeat the one-device path's losses and grad norms bit
+#: for bit or to train_check's 1e-5.  Across ranks bf16 products over
+#: another split of the batch round otherwise: every loss and grad norm
+#: of several ranks is held to these relative limits against one rank's.
+#: On four H100s four sound ranks read at most 2.40e-4 (loss) and 4.7e-4
+#: (grad norm), and the control that must fail the limits, one rank on a
+#: world's share of the batch (what a rank computes that neither reduces
+#: its gradient nor counts the others' labels), 6.7e-3 and 1.06
+#: (PERF.md §6)
+DIST_LOSS_RTOL, DIST_GNORM_RTOL = 2e-3, 2e-3
+#: `dist_collectives`: the int8 compressed all-reduce over a gradient of
+#: granite's embedding's size, and a pipeline of 8 layers tanh(a @ w) at
+#: d 2048 over 6 microbatches of 512 rows, float32 with TF32 off
+DIST_GRAD_NUMEL = 49_155 * 2_048
+DIST_PP_LAYERS, DIST_PP_D, DIST_PP_M, DIST_PP_B = 8, 2_048, 6, 512
 
 
 class SmokeFailure(RuntimeError):
@@ -2655,6 +2694,253 @@ def phase_train_smoke(dev, log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallel and the collectives
+# ---------------------------------------------------------------------------
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _src_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def _run_world(cmds, timeout: float):
+    """Run one process a rank at once; ``[(rc, stdout, stderr)]``.  Every
+    process is killed if one outlives ``timeout``."""
+    procs = [subprocess.Popen(c, env=_src_env(), cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def _dist_train_run(world: int, seed: int,
+                    batch: int = TRAIN_BATCH) -> dict:
+    """The train driver at granite-3-2b's full width on ``world`` ranks
+    (one a card, NCCL over ``tcp://127.0.0.1``), DIST_STEPS steps at
+    TRAIN_LR_FALLS with remat "none" from weights drawn from ``seed``, at
+    global batch ``batch``; its metrics file."""
+    out = os.path.join(ROOT, "chiprun_out",
+                       f"dist_train_w{world}_b{batch}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    url = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    res = _run_world([[sys.executable, "-m", "repro_torch.launch.train",
+                       "--arch", TRAIN_ARCH, "--steps", str(DIST_STEPS),
+                       "--lr", str(TRAIN_LR_FALLS), "--remat", "none",
+                       "--seed", str(seed), "--global-batch", str(batch),
+                       "--dist-init", url, "--rank", str(r),
+                       "--world-size", str(world), "--metrics-out", out]
+                      for r in range(world)], timeout=600)
+    wall = time.perf_counter() - t0
+    for r, (rc, o, e) in enumerate(res):
+        check(rc == 0, f"dist_train: rank {r} of {world} exited {rc}: "
+              f"{e.splitlines()[-20:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    import numpy as np
+    steady = np.array(rec["step_s"][1:]) * 1e3
+    p50 = float(np.percentile(steady, 50))
+    rec.update(wall_s=wall, summary=res[0][1].splitlines(),
+               step_ms_p50=p50, step_ms_p99=float(np.percentile(steady, 99)),
+               first_step_ms=rec["step_s"][0] * 1e3,
+               global_batch=batch,
+               tokens_per_s=batch * TRAIN_SEQ / (p50 / 1e3))
+    check(all(np.isfinite(rec["loss"] + rec["grad_norm"])),
+          f"dist_train ({world} ranks): a non-finite loss: {rec['loss']}")
+    return rec
+
+
+def _agreement(got: dict, want: dict) -> dict:
+    """How ``got``'s losses and grad norms hold against ``want``'s: the
+    largest relative difference of each, and whether both are bit for
+    bit or within train_check's 1e-5."""
+    out = {}
+    for k in ("loss", "grad_norm"):
+        out[f"{k}_max_rel"] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(got[k], want[k]))
+    out["held"] = (
+        "bit_for_bit" if all(got[k] == want[k][:DIST_STEPS]
+                             for k in ("loss", "grad_norm")) else
+        "train_check_1e-5" if max(out["loss_max_rel"],
+                                  out["grad_norm_max_rel"])
+        <= TRAIN_CHECK_RTOL else None)
+    out["within_dist_limits"] = (out["loss_max_rel"] <= DIST_LOSS_RTOL and
+                                 out["grad_norm_max_rel"] <= DIST_GNORM_RTOL)
+    return out
+
+
+def phase_dist_train(log, world: int, seed: int, reference=None):
+    """granite-3-2b at its full width (2,534,049,792 parameters) through
+    ``python -m repro_torch.launch.train`` on the dist path.  One rank is
+    held against ``reference`` (the `train` phase's run at the same seed,
+    lr and remat: its losses and grad norms), bit for bit or within
+    train_check's 1e-5; with no reference and one card there is nothing
+    to hold it against, and the phase fails.  On several cards every
+    card's run is held against the one rank's within DIST_LOSS_RTOL and
+    DIST_GNORM_RTOL, and a control (one rank on a world's share of the
+    batch) must fall outside them.  Records the losses and grad norms,
+    the agreements, step p50/p99 (host clock, each step ends in a
+    synchronize), tokens/s and each rank's peak device memory."""
+    check(reference is not None or world > 1,
+          "dist_train: one card and no `train` run to hold one rank "
+          "against")
+    rec = {"phase": "dist_train", "arch": TRAIN_ARCH, "world": world,
+           "steps": DIST_STEPS, "lr": TRAIN_LR_FALLS, "remat": "none",
+           "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "seed": seed,
+           "limits": {"loss": DIST_LOSS_RTOL, "grad_norm": DIST_GNORM_RTOL}}
+    runs = {1: _dist_train_run(1, seed)}
+    if reference is not None:
+        runs[1]["agreement"] = _agreement(runs[1], reference)
+    if world > 1:
+        runs[world] = _dist_train_run(world, seed)
+        runs[world]["agreement"] = _agreement(runs[world], runs[1])
+        control = _dist_train_run(1, seed, TRAIN_BATCH // world)
+        control["agreement"] = _agreement(control, runs[1])
+        rec["control"] = control
+    main = runs[world]
+    rec.update(main, runs={w: r for w, r in runs.items() if w != world},
+               reference="train (lr_falls)" if reference is not None
+               else "dist_train at 1 rank")
+    emit(rec, log)
+    check(main["world"] == world and main["summary"][0].startswith(
+        f"data parallel: {world} rank(s) over nccl"),
+          f"dist_train did not run {world} NCCL ranks: {main['summary'][:1]}")
+    if reference is not None:
+        check(runs[1]["agreement"]["held"] is not None,
+              f"dist_train at 1 rank is off the one-device path: "
+              f"{runs[1]['agreement']}")
+    if world > 1:
+        check(main["agreement"]["within_dist_limits"],
+              f"dist_train ({world} ranks) against 1 rank: "
+              f"{main['agreement']}")
+        check(not rec["control"]["agreement"]["within_dist_limits"],
+              f"dist_train: the control on 1/{world} of the batch passes "
+              f"the limits, which then show nothing: "
+              f"{rec['control']['agreement']}")
+    return rec
+
+
+def collectives_rank(rank: int, world: int, url: str, seed: int) -> dict:
+    """This rank's half of `dist_collectives` (NCCL, one card a rank):
+    `compressed_all_reduce` of a gradient made from ``seed + rank`` against
+    the plain sum of every rank's dequantized payload, and `pipeline_apply`
+    over a ("data", "model") = (1, world) mesh against `sequential_apply`;
+    with the times of each and of `all_reduce` on the same tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import compression as C
+    from repro_torch.dist.pipeline_parallel import (pipeline_apply,
+                                                    sequential_apply)
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=url, rank=rank,
+                            world_size=world, device_id=dev)
+    try:
+        def grad(r):
+            g = torch.Generator(device=dev).manual_seed(seed + r)
+            return torch.randn(DIST_GRAD_NUMEL, generator=g, device=dev)
+
+        x = grad(rank)
+        total, residual = C.compressed_all_reduce(x)
+        plain = sum(C.dequantize(C.quantize(grad(r))[0])
+                    for r in range(world))
+        _, want_res = C.quantize(x)
+        out = {"rank": rank, "backend": dist.get_backend(),
+               "compress_equal": bool(torch.equal(total, plain)),
+               "compress_max_abs_err": float((total - plain).abs().max()),
+               "compress_scale_sum": float(sum(C.quantize(grad(r))[0].scale
+                                               for r in range(world))),
+               "residual_equal": bool(torch.equal(residual, want_res)),
+               "compress_ms": cuda_ms(lambda: C.compressed_all_reduce(x),
+                                      reps=5, warmup=1),
+               "all_reduce_ms": cuda_ms(lambda: dist.all_reduce(x.clone()),
+                                        reps=5, warmup=1)}
+        mesh = make_mesh((1, world), ("data", "model"))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ws = torch.randn(DIST_PP_LAYERS, DIST_PP_D, DIST_PP_D, generator=g,
+                         device=dev) * DIST_PP_D ** -0.5
+        xs = torch.randn(DIST_PP_M, DIST_PP_B, DIST_PP_D, generator=g,
+                         device=dev)
+
+        def body(a, w):
+            return torch.tanh(a @ w)
+
+        got = pipeline_apply(body, ws, xs, mesh)
+        want = sequential_apply(body, ws, xs)
+        out.update(pp_equal=bool(torch.equal(got, want)),
+                   pp_max_abs_err=float((got - want).abs().max()),
+                   pp_ms=cuda_ms(lambda: pipeline_apply(body, ws, xs, mesh),
+                                 reps=3, warmup=1),
+                   sequential_ms=cuda_ms(
+                       lambda: sequential_apply(body, ws, xs), reps=3,
+                       warmup=1))
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_collectives(log, world: int, seed: int):
+    """`collectives_rank` on ``world`` ranks, one process each (this
+    script with ``--collectives-rank``).  The compressed sum must equal
+    the plain one bit for bit on one rank and within float32 rounding of
+    the summed scales on several (NCCL adds in its own order); the
+    pipeline must equal the sequential stack bit for bit on one rank and
+    within 1e-5 across cards (``pp_equal`` says whether it was bit for
+    bit)."""
+    url = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    res = _run_world([[sys.executable, os.path.abspath(__file__),
+                       "--collectives-rank", str(r), "--world", str(world),
+                       "--url", url, "--seed", str(seed)]
+                      for r in range(world)], timeout=300)
+    for r, (rc, o, e) in enumerate(res):
+        check(rc == 0, f"dist_collectives: rank {r} exited {rc}: "
+              f"{e.splitlines()[-20:]}")
+    ranks = [json.loads(o.splitlines()[-1]) for _, o, _ in res]
+    rec = {"phase": "dist_collectives", "world": world,
+           "stages": world, "microbatches": DIST_PP_M,
+           "bubble_fraction": (world - 1) / (DIST_PP_M + world - 1),
+           "grad_numel": DIST_GRAD_NUMEL, "wall_s": time.perf_counter() - t0,
+           "ranks": ranks}
+    emit(rec, log)
+    for r in ranks:
+        check(r["backend"] == "nccl", f"dist_collectives ran on {r}")
+        check(r["residual_equal"], "dist_collectives: residual differs")
+        if world == 1:
+            check(r["compress_equal"], "compressed_all_reduce differs from "
+                  f"its plain sum at one rank: {r['compress_max_abs_err']}")
+        else:
+            check(r["compress_max_abs_err"] <= 1e-6 * r["compress_scale_sum"]
+                  * 127, f"compressed_all_reduce off its plain sum: {r}")
+        # one rank runs the stack's own products; across cards each stage
+        # runs them on its own card
+        check(r["pp_equal"] or (world > 1 and r["pp_max_abs_err"] <= 1e-5),
+              f"pipeline_apply differs from sequential_apply: "
+              f"{r['pp_max_abs_err']}")
+    return rec
+
+
 def phase_driver(log):
     """The serve driver as a user runs it, with ``--doctor`` and an RMI
     spec on the cuda backend, five times: at its defaults (the async
@@ -2665,8 +2951,8 @@ def phase_driver(log):
     phase's arch (granite-3-2b, deepseek-moe-16b, mamba2-2.7b,
     whisper-tiny), 8 requests of 8 new tokens.  Then the train driver
     (``python -m repro_torch.launch.train``): granite-3-2b at its full
-    width for TRAIN_STEPS steps with no checkpoint directory (a full-width
-    checkpoint is ~25 GB); and at its smoke width for 12 steps with a checkpoint every 5, then again
+    width for DRIVER_TRAIN_STEPS steps with no checkpoint directory (a
+    full-width checkpoint is ~25 GB); and at its smoke width for 12 steps with a checkpoint every 5, then again
     with ``--resume``, which must print ``resumed from step 10``.  Each
     must exit 0 with a finite final loss, and the smoke run's must be
     below its step 0's (the full width at the driver's peak lr does not
@@ -2700,7 +2986,7 @@ def phase_driver(log):
                                "--max-new", str(TOKENS_MAX_NEW)])
                for phase, (arch, _) in TOKEN_PHASES.items()},
             "train": (train, ["--arch", TRAIN_ARCH, "--steps",
-                              str(TRAIN_STEPS)]),
+                              str(DRIVER_TRAIN_STEPS)]),
             "train_smoke_ckpt": (train, smoke_train),
             "train_smoke_resume": (train, [*smoke_train, "--resume"])}
     check(sorted(runs) == sorted(sum(DRIVER_WAVES, ())),
@@ -2787,6 +3073,12 @@ def _driver_checks(label, module, res, t0, jsonl, log, out):
               "serve driver (autotune) daemon not up")
 
 
+def _write(path: str, summary: dict) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=200_000_000,
@@ -2795,6 +3087,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
+    ap.add_argument("--only", choices=("dist",), default=None,
+                    help="dist: the device, build and dist phases alone, "
+                         "at a world of every card")
+    ap.add_argument("--collectives-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--url", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2806,7 +3105,12 @@ def main(argv=None) -> int:
     import numpy as np
     import repro_torch.core  # noqa: F401  (fails outside a checkout)
 
+    if args.collectives_rank is not None:     # one rank of dist_collectives
+        print(json.dumps(collectives_rank(args.collectives_rank, args.world,
+                                          args.url, args.seed)))
+        return 0
     dev = torch.device("cuda")
+    world = torch.cuda.device_count()
     log: list = []
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -2815,6 +3119,18 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__}, log)
     build_s = phase_build(log)
+    if args.only == "dist":
+        dist_out = {"dist_train": phase_dist_train(log, world, args.seed),
+                    "dist_collectives": phase_dist_collectives(log, world,
+                                                               args.seed)}
+        _write(args.out, {"card": smi, "only": "dist", "dist": dist_out,
+                          "total_s": time.perf_counter() - t_start,
+                          "log": log})
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
     totals = {k: 0 for k in kernel_counters()}
@@ -2872,6 +3188,10 @@ def main(argv=None) -> int:
              "train_check": phase_train_check(dev, args, log),
              "train_resume": phase_train_resume(dev, args, log),
              "train_smoke": phase_train_smoke(dev, log)}
+    # the `train` phase's lower-lr run is the reference
+    dist_out = {"dist_train": phase_dist_train(
+        log, world, args.seed, train["train"]["runs"]["lr_falls"]),
+        "dist_collectives": phase_dist_collectives(log, world, args.seed)}
     driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
     for k in kernels:
@@ -2882,13 +3202,11 @@ def main(argv=None) -> int:
     kernels.append(b1_int32)
     emit({"phase": "launches", **totals,
           "bounded_search_int32": b1_int32["launches"]}, log)
-    summary = {"card": smi, "n": args.n, "queries": QUERIES, "batch": BATCH,
-               "build_wall_s": build_s, "cells": cells, "tokens": tokens,
-               "train": train, "driver": driver,
-               "total_s": time.perf_counter() - t_start, "log": log}
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(summary, f, indent=1)
+    _write(args.out, {"card": smi, "n": args.n, "queries": QUERIES,
+                      "batch": BATCH, "build_wall_s": build_s, "cells": cells,
+                      "tokens": tokens, "train": train, "dist": dist_out,
+                      "driver": driver,
+                      "total_s": time.perf_counter() - t_start, "log": log})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -128,9 +128,10 @@ def from_reference(name: str, ref_state, keys: np.ndarray,
     return fn(ref_state, keys, hyper, device=device)
 
 
-def _reference_leaf(model, name: str, tree) -> np.ndarray:
-    """The reference leaf behind the port's parameter ``name``, as
-    float32 numpy (bf16 leaves come as float32, exactly).
+def reference_path(model, name: str):
+    """``(path, layer)``: the reference tree's keys to the leaf behind the
+    port's parameter ``name``, and the index on that leaf's leading layer
+    axis (None for an unstacked leaf).
 
     Decoder: ``pro.{i}.*`` is ``pro{i}``; ``blocks.{n}.*`` is the
     reference's ``blocks.sub{j}`` at layer-axis index ``i`` for ``n = i *
@@ -147,6 +148,14 @@ def _reference_leaf(model, name: str, tree) -> np.ndarray:
     elif parts[0] in ("enc", "dec"):
         layer = int(parts[1])
         parts = [parts[0], *parts[2:]]
+    return parts, layer
+
+
+def _reference_leaf(model, name: str, tree) -> np.ndarray:
+    """The reference leaf behind the port's parameter ``name``
+    (`reference_path`), as float32 numpy (bf16 leaves come as float32,
+    exactly)."""
+    parts, layer = reference_path(model, name)
     for k in parts:
         tree = tree[k]
     arr = np.asarray(tree, np.float32)

@@ -1,17 +1,36 @@
-"""Train driver: the reference's `repro.launch.train` on one device.
+"""Train driver: the reference's `repro.launch.train`, on one device or
+data-parallel over `torch.distributed`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --steps 50 --ckpt-dir /tmp/ckpt
 
 trains the architecture at its full width on the CUDA card; ``--smoke``
 takes its reduced config and ``--device cpu`` asks for the CPU.  The
-loop is the reference's: weights from seed 0, the deterministic token
-pipeline (`repro_torch.data.pipeline`), AdamW on a cosine schedule
+loop is the reference's: weights from ``--seed`` (0, the reference's
+fixed seed), the deterministic token pipeline
+(`repro_torch.data.pipeline`), AdamW on a cosine schedule
 (warm-up 10), async atomic checkpoints every ``--ckpt-every`` steps,
-``--resume`` from the newest one, and the heartbeat ledger.  One process
-and one card: no mesh until the port's ``dist/``.  It prints ``step N
-loss ... gnorm ... s/step`` every 10 steps, ``resumed from step N`` and
-``done: final loss ...``.
+``--resume`` from the newest one, and the heartbeat ledger.  It prints
+``step N loss ... gnorm ... s/step`` every 10 steps, ``resumed from step
+N`` and ``done: final loss ...``.
+
+Data parallel: with ``--dist-init URL --rank R --world-size N`` (an
+explicit ``tcp://host:port`` or ``file:///path``), or under torchrun
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), each process
+is one rank of a process group, NCCL on the CUDA cards (rank R on card
+``LOCAL_RANK``, else R modulo the card count) and gloo on the CPU.  The
+ranks form an ``(N, 1)`` ("data", "model") mesh (`launch/mesh.py`); each
+keeps the whole model and, for every parameter, the block of its
+gradient and of both moments that the config's parameter rules place on
+it (`repro_torch.dist.sharding`; ZeRO-style sharding, not FSDP storage),
+takes its host slice of the global batch and runs
+`train_step.DataParallel`'s step.
+Rank 0 prints and writes the checkpoints, in the one-device format (full
+tensors), so a run of N ranks resumes from a run of any other count.
+Without those flags the driver runs one process on one device, as
+before.  ``--metrics-out FILE`` writes every step's loss, grad norm and
+seconds (each step ends in a synchronize) and each rank's peak device
+memory as JSON.
 
 The token pipeline yields no ``frames``, so the encdec family
 (whisper-tiny) is refused with exit code 2 (the reference's driver dies
@@ -20,18 +39,61 @@ on a ``KeyError`` there).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import time
 
 import torch
 
 
-def build_state(cfg, opt, device):
-    """Params from seed 0 and a zeroed optimizer state on ``device``."""
+def build_state(cfg, opt, device, seed=0):
+    """Params from ``seed`` and a zeroed optimizer state on ``device``."""
     from repro_torch.models import model as M
     from repro_torch.train.train_step import TrainState
 
-    params = M.init_params(cfg, seed=0, device=device)
+    params = M.init_params(cfg, seed=seed, device=device)
     return TrainState(params, opt.init(params))
+
+
+def dist_args(args, ap):
+    """``(url, rank, world)`` from the flags or torchrun's environment;
+    None for one process."""
+    env = os.environ
+    url, rank, world = args.dist_init, args.rank, args.world_size
+    if url is None and {"RANK", "WORLD_SIZE", "MASTER_ADDR",
+                        "MASTER_PORT"} <= set(env):
+        url = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if url is None:
+        if rank is not None or world is not None:
+            ap.error("--rank and --world-size need --dist-init")
+        return None
+    if rank is None or world is None:
+        ap.error("--dist-init needs --rank and --world-size")
+    if not 0 <= rank < world:
+        ap.error(f"--rank {rank} outside a world of {world}")
+    return url, rank, world
+
+
+def init_distributed(url: str, rank: int, world: int, device):
+    """Join the process group: NCCL on a CUDA device (this rank's card),
+    gloo on the CPU.  Returns the rank's device."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = os.environ.get("LOCAL_RANK")
+            dev = torch.device("cuda", int(local) if local is not None
+                               else rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=url, rank=rank,
+                                world_size=world, device_id=dev)
+    else:
+        dist.init_process_group("gloo", init_method=url, rank=rank,
+                                world_size=world)
+    return dev
 
 
 def main(argv=None) -> None:
@@ -44,12 +106,23 @@ def main(argv=None) -> None:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the initial weights")
+    ap.add_argument("--remat", choices=("none", "dots", "full"),
+                    help="recompute policy (default: the config's)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA "
                          "card)")
+    ap.add_argument("--dist-init", default=None,
+                    help="process group address, tcp://host:port or "
+                         "file:///path (data-parallel training)")
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--world-size", type=int, default=None)
+    ap.add_argument("--metrics-out", default=None,
+                    help="write per-step metrics and peak memory as JSON")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import ARCHS, get, get_smoke
@@ -58,7 +131,7 @@ def main(argv=None) -> None:
     from repro_torch.train import checkpoint as CK
     from repro_torch.train import fault_tolerance as FT
     from repro_torch.train import train_step as TS
-    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.optimizer import AdamW, AdamWState, cosine_schedule
 
     if args.arch not in ARCHS:
         ap.error(f"unknown --arch {args.arch!r}; known: {sorted(ARCHS)}")
@@ -66,50 +139,116 @@ def main(argv=None) -> None:
     if cfg.family == "encdec":
         ap.error(f"--arch {args.arch}: the token pipeline yields no "
                  "'frames', which the encdec family trains on")
+    if args.remat is not None:
+        cfg = dataclasses.replace(cfg, remat=args.remat)
+    dist_spec = dist_args(args, ap)
     dev = resolve_device(args.device)
+    rank, world = 0, 1
+    if dist_spec is not None:
+        url, rank, world = dist_spec
+        if args.global_batch % (world * args.microbatches):
+            ap.error(f"--global-batch {args.global_batch} does not split "
+                     f"into {world} ranks x {args.microbatches} microbatches")
+        dev = init_distributed(url, rank, world, dev)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=10, total=args.steps))
     pipe = TokenPipeline(PipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq_len, global_batch=args.global_batch,
-        seed=0), device=dev)
-    ledger = FT.HeartbeatLedger(1)
+        seed=0, host_id=rank, n_hosts=world), device=dev)
+    ledger = FT.HeartbeatLedger(world)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
-    state = build_state(cfg, opt, dev)
+    dp = mesh = None
+    if dist_spec is None:
+        state = build_state(cfg, opt, dev, args.seed)
+        step_fn = TS.make_train_step(cfg, opt, args.microbatches)
+    else:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import model as M
+
+        mesh = make_mesh((world, 1), ("data", "model"))
+        # the config's parameter rules (`sharding.select_rules`)
+        dp = TS.DataParallel(cfg, opt, mesh, args.microbatches)
+        # moments only for this rank's blocks: never the whole state
+        state = dp.init(M.init_params(cfg, seed=args.seed, device=dev))
+        say(f"data parallel: {world} rank(s) over "
+            f"{torch.distributed.get_backend()}, mesh ({world}, 1) "
+            f"('data', 'model'), {sum(d is not None for d in dp.dims)} of "
+            f"{len(dp.dims)} parameters sharded", flush=True)
+        step_fn = dp.step
     start = 0
     if args.resume and args.ckpt_dir:
         latest = CK.latest_step(args.ckpt_dir)
         if latest is not None:
-            state = CK.restore(args.ckpt_dir, latest, state)
+            if dp is None:
+                state = CK.restore(args.ckpt_dir, latest, state)
+            else:   # whole moments on the host, then this rank's blocks
+                full = [torch.empty(p.shape, dtype=torch.float32)
+                        for p in state.params.parameters()]
+                like = TS.TrainState(state.params, AdamWState(
+                    torch.zeros((), dtype=torch.int32), full,
+                    [torch.empty_like(t) for t in full]))
+                dp.load(state, CK.restore(args.ckpt_dir, latest, like))
             start = latest + 1
-            print(f"resumed from step {latest}")
-    step_fn = TS.make_train_step(cfg, opt, args.microbatches)
+            say(f"resumed from step {latest}")
     ckpt_thread = metrics = None
+    record = {"loss": [], "grad_norm": [], "step_s": []}
     for step in range(start, args.steps):
         t0 = time.time()
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in pipe.batch(step).items()}
         state, metrics = step_fn(state, batch)
-        ledger.beat(0, step)
+        if args.metrics_out:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            record["step_s"].append(time.time() - t0)
+            record["loss"].append(float(metrics["loss"]))
+            record["grad_norm"].append(float(metrics["grad_norm"]))
+        # a data-parallel step's collectives complete only once every
+        # rank has reached it: each rank saw every rank's beat
+        for host in range(world):
+            ledger.beat(host, step)
         stragglers, dead = ledger.classify(step)
         if dead:
             plan = FT.plan_recovery(
-                ledger, step, (1,), ("data",), hosts_per_pod=1,
+                ledger, step, (world, 1) if mesh else (1,),
+                ("data", "model") if mesh else ("data",), hosts_per_pod=1,
                 ckpt_latest=CK.latest_step(args.ckpt_dir)
                 if args.ckpt_dir else None)
-            print(f"!! dead hosts {dead}: recovery plan {plan}")
+            say(f"!! dead hosts {dead}: recovery plan {plan}")
         if step % 10 == 0:
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"{time.time()-t0:.2f}s/step", flush=True)
+            say(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"{time.time()-t0:.2f}s/step", flush=True)
         if args.ckpt_dir and step and step % args.ckpt_every == 0:
-            if ckpt_thread is not None:
-                ckpt_thread.join()  # one in flight
-            ckpt_thread = CK.save(args.ckpt_dir, step, state,
-                                  extra={"arch": cfg.name})
+            whole = state if dp is None else dp.full_state(state)
+            if rank == 0:
+                if ckpt_thread is not None:
+                    ckpt_thread.join()  # one in flight
+                ckpt_thread = CK.save(args.ckpt_dir, step, whole,
+                                      extra={"arch": cfg.name})
+            del whole
     if ckpt_thread is not None:
         ckpt_thread.join()
+    if args.metrics_out:
+        peak = [torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None]
+        if dp is not None:
+            peaks = [None] * world
+            torch.distributed.all_gather_object(peaks, peak[0])
+            peak = peaks
+        if rank == 0:
+            with open(args.metrics_out, "w") as f:
+                json.dump(dict(record, arch=cfg.name, world=world,
+                               device=str(dev), remat=cfg.remat,
+                               peak_mem_gb=peak), f)
     if metrics is not None:
-        print(f"done: final loss {float(metrics['loss']):.4f}")
+        say(f"done: final loss {float(metrics['loss']):.4f}")
+    if dist_spec is not None:
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -71,6 +71,24 @@ class EncDec(nn.Module):
         self.final_norm = T._norm_params(cfg, init)
 
 
+
+def encdec_specs(cfg: ModelConfig) -> Dict:
+    """Logical axis names of every `EncDec` parameter, keyed as
+    ``named_parameters()`` names them: the reference's
+    ``encdec_specs`` less the leading ``"layers"`` of the ``enc`` and
+    ``dec`` stacks, which the port unstacks."""
+    norm, attn, mlp = T.norm_specs(cfg), T.attn_specs(cfg), T.mlp_specs(cfg)
+    tree: Dict = {"embed": T.embed_specs(cfg), "enc_pos": (None, "embed"),
+                  "dec_pos": (None, "embed")}
+    for i in range(cfg.encoder_layers):
+        tree[f"enc.{i}"] = {"norm1": norm, "attn": attn, "norm2": norm,
+                            "mlp": mlp}
+    for i in range(cfg.n_layers):
+        tree[f"dec.{i}"] = {"norm1": norm, "attn": attn, "norm_x": norm,
+                            "xattn": attn, "norm2": norm, "mlp": mlp}
+    tree.update(enc_norm=norm, final_norm=norm)
+    return T._flat(tree)
+
 def encode(cfg: ModelConfig, params: EncDec, frames):
     """frames [B, S_enc, d] stub embeddings -> encoder states."""
     b, s = frames.shape[:2]
@@ -124,6 +142,12 @@ def encdec_cache_shapes(cfg: ModelConfig, batch: int, s_max: int):
             "enc_out": meta((batch, cfg.encoder_seq, cfg.d_model), dt),
             "len": meta((batch,), torch.int32)}
 
+
+
+def encdec_cache_specs(cfg: ModelConfig) -> Dict:
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": kv, "v": kv, "enc_out": ("batch", None, None),
+            "len": (None,)}
 
 @torch.no_grad()
 def encdec_decode(cfg: ModelConfig, params: EncDec, cache: Dict, tokens):

@@ -37,6 +37,20 @@ def init_mamba(cfg: ModelConfig, init) -> nn.ParameterDict:
     })
 
 
+
+def mamba_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of `init_mamba`'s parameters (the reference's
+    ``mamba_specs``)."""
+    return {
+        "w_in": ("embed", "ssm_inner"),
+        "w_out": ("ssm_inner", "embed"),
+        "conv_w": ("conv", "ssm_inner"),
+        "A_log": ("state",),
+        "D": ("state",),
+        "dt_bias": ("state",),
+        "norm_scale": ("ssm_inner",),
+    }
+
 def _split_proj(cfg: ModelConfig, proj):
     di, ns = cfg.d_inner, cfg.ssm_state
     return (proj[..., :di], proj[..., di:2 * di],

@@ -28,10 +28,17 @@ expert id; ``torch.topk`` promises no order for ties, so the port takes
 its top k from a stable descending sort, which gives them to the lower id
 too.
 
-Groups.  The reference dispatches per data shard; with no mesh that is
-one group (`repro.dist.sharding.dispatch_groups`), and the port, which
-has no mesh yet, always uses one.  Its sharding annotations have no
-counterpart here.
+Groups.  The tokens are dispatched in groups, one a data shard
+(`_n_groups`: `repro_torch.dist.sharding.dispatch_groups`, halved until
+it divides the token count), each with its own sort, segments and
+capacity, as the reference dispatches them; with no `axis_rules` context
+that is one group.  Capacity drops depend on the group count, so an
+n-rank data-parallel step equals the one-rank step run with n groups:
+each rank's tokens are one group, and the router's dispatch fractions
+are averaged over the ranks (`batch_mean`), so that its load-balance
+loss is the global batch's, as the reference's is.
+The reference's sharding annotations have no counterpart here: each rank
+runs the layer on its local tensors.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import batch_mean, dispatch_groups
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import silu
 
@@ -63,6 +71,23 @@ def init_moe(cfg: ModelConfig, init) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of `init_moe`'s parameters (the reference's
+    ``moe_specs``): the expert weights shard their hidden dim
+    (``expert_fsdp``), never the contraction dim ``embed``."""
+    p = {
+        "router": ("embed", "experts"),
+        "wi": ("experts", None, "expert_fsdp"),
+        "wg": ("experts", None, "expert_fsdp"),
+        "wo": ("experts", "expert_fsdp", None),
+    }
+    if cfg.n_shared_experts:
+        p["shared_wi"] = ("embed", "mlp")
+        p["shared_wg"] = ("embed", "mlp")
+        p["shared_wo"] = ("mlp", "embed")
+    return p
+
 def _router(cfg: ModelConfig, p, x):
     """x [T, d] -> (top-k probs [T, k], top-k ids [T, k] int64, aux)."""
     logits = torch.einsum("td,de->te", x.float(), p["router"])
@@ -70,9 +95,10 @@ def _router(cfg: ModelConfig, p, x):
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
     top_p = top_p / top_p.sum(-1, keepdim=True)
-    # Switch load-balance loss: E * sum_e f_e * p_e, on the first choice
+    # Switch load-balance loss: E * sum_e f_e * p_e, on the first choice;
+    # f over the global batch (`batch_mean`: every data rank's tokens)
     e = cfg.n_experts
-    f = F.one_hot(top_i[:, 0], e).float().mean(0)
+    f = batch_mean(F.one_hot(top_i[:, 0], e).float().mean(0))
     aux = e * torch.sum(f * probs.mean(0)) * cfg.aux_loss_coef
     z = torch.logsumexp(logits, dim=-1).square().mean() * cfg.router_z_coef
     return top_p, top_i, aux + z
@@ -172,22 +198,33 @@ class SortedToTokens(torch.autograd.Function):
         return None, _rows(ct, tok_sorted), None, None
 
 
-def sorted_dispatch_plan(cfg: ModelConfig, top_i):
+def _n_groups(t: int) -> int:
+    """Dispatch groups = data shards (1 without a mesh), halved until
+    they divide the ``t`` tokens (the reference's ``_n_groups``)."""
+    g = dispatch_groups(t)
+    while t % g:
+        g //= 2
+    return max(g, 1)
+
+
+def sorted_dispatch_plan(cfg: ModelConfig, top_i, groups: int = 1):
     """The sorted dispatch's index arithmetic for top-k ids ``[T, k]``
-    (one group): a dict of ``order``, ``inv_perm``, ``e_sorted``,
-    ``tok_sorted``, ``seg_start``, ``keep``, ``flat_slot``, ``inv_slot``
-    (each ``[1, ...]``) and ``cap``."""
+    in ``groups`` groups of ``T / groups`` consecutive tokens: a dict of
+    ``order``, ``inv_perm``, ``e_sorted``, ``tok_sorted``, ``seg_start``,
+    ``keep``, ``flat_slot``, ``inv_slot`` (each ``[groups, ...]``) and
+    ``cap``, the slots an expert holds in a group."""
     t, k = top_i.shape
-    e, j = cfg.n_experts, t * k
-    cap = capacity(cfg, t)
+    g, e = groups, cfg.n_experts
+    j = t // g * k
+    cap = capacity(cfg, t // g)
     dev = top_i.device
-    eg = top_i.reshape(1, j)
+    eg = top_i.reshape(g, j)
     order = torch.argsort(eg, dim=-1, stable=True)    # sort pairs by expert
     inv_perm = torch.argsort(order, dim=-1)           # a permutation: no ties
     e_sorted = torch.gather(eg, -1, order)
     tok_sorted = order // k                           # token of sorted entry
     # the paper's operation: segment starts = lower_bound(e_sorted, e)
-    experts = torch.arange(e, device=dev).expand(1, e).contiguous()
+    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
     seg_start = torch.searchsorted(e_sorted, experts)
     seg_end = torch.searchsorted(e_sorted, experts, right=True)
     pos_in_seg = (torch.arange(j, device=dev)[None]
@@ -198,33 +235,35 @@ def sorted_dispatch_plan(cfg: ModelConfig, top_i):
     # slot -> sorted position, arithmetically (j marks an empty slot)
     islot = seg_start[:, :, None] + torch.arange(cap, device=dev)[None, None]
     valid = islot < torch.minimum(seg_end, seg_start + cap)[:, :, None]
-    inv_slot = torch.where(valid, islot, j).reshape(1, e * cap)
+    inv_slot = torch.where(valid, islot, j).reshape(g, e * cap)
     return dict(order=order, inv_perm=inv_perm, e_sorted=e_sorted,
                 tok_sorted=tok_sorted, seg_start=seg_start, keep=keep,
                 flat_slot=flat_slot, inv_slot=inv_slot, cap=cap)
 
 
 def _dispatch_sorted(cfg: ModelConfig, p, x2d):
-    """Sort-by-expert dispatch with capacity."""
+    """Sort-by-expert dispatch with capacity, in `_n_groups` groups."""
     t, d = x2d.shape
     e, k = cfg.n_experts, cfg.top_k
+    g = _n_groups(t)
+    tl = t // g                                       # tokens a group
     top_p, top_i, aux = _router(cfg, p, x2d)
-    plan = sorted_dispatch_plan(cfg, top_i)
+    plan = sorted_dispatch_plan(cfg, top_i, g)
     cap = plan["cap"]
-    p_sorted = torch.gather(top_p.reshape(1, t * k), -1, plan["order"])
+    p_sorted = torch.gather(top_p.reshape(g, tl * k), -1, plan["order"])
 
     slots = plan["inv_slot"], plan["flat_slot"], plan["keep"]
     perm = plan["tok_sorted"], plan["inv_perm"]
 
     # dispatch: tokens -> sorted -> slots, a zero row for the empty slots
-    xs_sorted = TokensToSorted.apply(k, x2d.reshape(1, t, d), *perm)
+    xs_sorted = TokensToSorted.apply(k, x2d.reshape(g, tl, d), *perm)
     xs = SortedToSlots.apply(_pad_row(xs_sorted), *slots).reshape(
-        1, e, cap, d)
+        g, e, cap, d)
 
     ys = _expert_ffn(cfg, p, xs)
 
     # combine: slots -> sorted (weighted, dropped rows zero) -> tokens
-    ys_sorted = SlotsToSorted.apply(ys.reshape(1, e * cap, d), *slots)
+    ys_sorted = SlotsToSorted.apply(ys.reshape(g, e * cap, d), *slots)
     ys_sorted = ys_sorted * p_sorted[..., None].to(ys_sorted.dtype)
     out = SortedToTokens.apply(k, ys_sorted, *perm).reshape(t, d)
     return out, aux
@@ -234,9 +273,11 @@ def _dispatch_dense(cfg: ModelConfig, p, x2d):
     """Baseline: every expert computes every token; mask-combine."""
     t, d = x2d.shape
     e = cfg.n_experts
+    g = _n_groups(t)
     top_p, top_i, aux = _router(cfg, p, x2d)
-    xs = x2d.reshape(1, 1, t, d).expand(1, e, t, d)
-    ys = _expert_ffn(cfg, p, xs)[0]                   # [E, T, d]
+    xs = x2d.reshape(g, 1, t // g, d).expand(g, e, t // g, d)
+    ys = _expert_ffn(cfg, p, xs)                      # [G, E, T/G, d]
+    ys = ys.permute(1, 0, 2, 3).reshape(e, t, d)      # [E, T, d]
     combine = torch.zeros((t, e), dtype=torch.float32, device=x2d.device)
     combine.scatter_(1, top_i, top_p)                 # [T, E]
     out = torch.einsum("etd,te->td", ys, combine.to(ys.dtype))

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as S
 from repro_torch.models import moe as MOE
@@ -130,6 +131,111 @@ def _mlp_params(cfg: ModelConfig, init: _Init, f: int) -> nn.ParameterDict:
     return nn.ParameterDict(mlp)
 
 
+
+# ---------------------------------------------------------------------------
+# logical axis names (the reference's sharding surface)
+# ---------------------------------------------------------------------------
+def _flat(tree, prefix: str = "") -> Dict:
+    """A nested dict of name tuples flattened to ``{"a.b.c": names}``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        out.update(_flat(v, key + ".") if isinstance(v, dict) else {key: v})
+    return out
+
+
+def norm_specs(cfg: ModelConfig) -> Dict:
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
+def attn_specs(cfg: ModelConfig) -> Dict:
+    attn = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        attn.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                    bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        attn.update(q_norm=(None,), k_norm=(None,))
+    return attn
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict:
+    mlp = {"wi": ("embed", "mlp")}
+    if cfg.act == "swiglu":
+        mlp["wg"] = ("embed", "mlp")
+    mlp["wo"] = ("mlp", "embed")
+    return mlp
+
+
+def embed_specs(cfg: ModelConfig) -> Dict:
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["head"] = ("embed", "vocab")
+    return emb
+
+
+def block_specs(cfg: ModelConfig, mixer: str, ffn: str) -> Dict:
+    """A `Block`'s parameters' logical names, nested as its
+    ``ParameterDict``s are (the reference's ``block_specs``)."""
+    p: Dict = {"norm1": norm_specs(cfg)}
+    if mixer == "attn":
+        p["attn"] = attn_specs(cfg)
+    else:
+        p["ssm"] = S.mamba_specs(cfg)
+    if ffn != "none":
+        p["norm2"] = norm_specs(cfg)
+    if ffn == "dense":
+        p["mlp"] = mlp_specs(cfg)
+    elif ffn == "moe":
+        p["moe"] = MOE.moe_specs(cfg)
+    return p
+
+
+def decoder_specs(cfg: ModelConfig) -> Dict:
+    """Logical axis names of every `Decoder` parameter, keyed as
+    ``named_parameters()`` names them (`model.param_specs` orders them).
+
+    Each name tuple is the reference's (`repro.models.transformer.
+    decoder_specs`) at the path `repro_torch.convert` maps the parameter
+    to, less the leading ``"layers"`` of a scanned block: the port
+    unstacks that axis into ``blocks.{n}``, and no rule table shards it.
+    """
+    pro, unit, n_scan = stack_plan(cfg)
+    tree: Dict = {"embed": embed_specs(cfg)}
+    for i, (mixer, ffn, _) in enumerate(pro):
+        tree[f"pro.{i}"] = block_specs(cfg, mixer, ffn)
+    for n in range(n_scan * len(unit)):
+        mixer, ffn, _ = unit[n % len(unit)]
+        tree[f"blocks.{n}"] = block_specs(cfg, mixer, ffn)
+    tree["final_norm"] = norm_specs(cfg)
+    return _flat(tree)
+
+
+def cache_specs(cfg: ModelConfig) -> Dict:
+    """Logical names of the decode cache (`init_cache_shapes`'s tree), the
+    reference's ``cache_specs``: ``kv_seq`` gives sequence-parallel
+    decode."""
+    pro, unit, _ = stack_plan(cfg)
+    kv = ("batch", "kv_seq", "kv_heads", None)
+    ssm = ("batch", "heads", None, None)
+    conv = ("batch", None, "ssm_inner")
+
+    def block(mixer, lead=()):
+        if mixer == "attn":
+            return {"k": lead + kv, "v": lead + kv}
+        return {"ssm": lead + ssm, "conv": lead + conv}
+
+    cache = {"blocks": {f"sub{j}": block(m, ("layers",))
+                        for j, (m, _, _) in enumerate(unit)},
+             "len": (None,)}
+    for i, (m, _, _) in enumerate(pro):
+        cache[f"pro{i}"] = block(m)
+    return cache
+
 def _save_dots(ctx, op, *args, **kwargs):
     """The reference's ``checkpoint_dots_with_no_batch_dims``: keep the
     output of a product with no batch dimension (a weight product; einsum
@@ -144,7 +250,9 @@ def remat(mode: str, fn):
     """``fn`` recomputed in the backward pass, as the reference's `_remat`:
     ``"none"`` saves every activation, ``"full"`` only ``fn``'s inputs,
     ``"dots"`` also the products with no batch dimension.  The values are
-    ``fn``'s either way.  With autograd off it is ``fn`` itself."""
+    ``fn``'s either way, and so is the sharding context it runs under
+    (`repro_torch.dist.sharding.context`: a data-parallel MoE router
+    reads it).  With autograd off it is ``fn`` itself."""
     if mode not in ("none", "dots", "full"):
         raise ValueError(f"remat {mode!r}: none, dots or full")
     if mode == "none":
@@ -157,7 +265,15 @@ def remat(mode: str, fn):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        # the backward recomputes ``fn`` on autograd's thread: under the
+        # sharding context of this forward, not that thread's (empty) one
+        saved = SH.context()
+
+        def again(*a):
+            with SH.in_context(saved):
+                return fn(*a)
+
+        return _ckpt.checkpoint(again, *args, use_reentrant=False, **kw)
 
     return run
 

@@ -19,8 +19,9 @@ lower-bound rank ``offsets[s] + LB_local(q)`` bit-identical to the global
 The topology is a value object carried by registry generations; the
 dispatcher, health monitor, and metrics all consume it read-only.
 
-A copy of the reference's `repro.serve.lookup.topology` (with
-`shard_replica_groups` from its `repro.dist.sharding`).  Split points
+A copy of the reference's `repro.serve.lookup.topology`;
+`shard_replica_groups` lives in `repro_torch.dist.sharding`, as the
+reference's does, and is imported here under its name.  Split points
 stay raw uint64 on the host; `route_device` compares them in the key
 codec of `repro_torch.kernels.common` (flipped int64) on the device.
 """
@@ -32,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import shard_replica_groups  # noqa: F401
 from repro_torch.kernels.common import branchless_lower_bound, encode_keys
 
 
@@ -217,26 +219,3 @@ class ShardTopology:
             "split_points": [int(s) for s in self.split_points],
         }
 
-
-def shard_replica_groups(devices, replicas):
-    """Assign each shard a round-robin group of physical devices.
-
-    ``replicas[s]`` devices per shard, walked over ``devices`` with a
-    running pointer modulo the device count: with S shards on S devices
-    at one replica each, shard s lands exactly on device s; with more
-    replica seats than devices the groups wrap, spreading hot shards over
-    distinct devices first (on one card every lane shares it).  Returns a
-    list of per-shard device lists.
-    """
-    devices = list(devices)
-    if not devices:
-        raise ValueError("shard_replica_groups needs at least one device")
-    groups = []
-    ptr = 0
-    for r in replicas:
-        r = int(r)
-        if r < 1:
-            raise ValueError("every shard needs at least one replica")
-        groups.append([devices[(ptr + i) % len(devices)] for i in range(r)])
-        ptr += r
-    return groups

@@ -15,8 +15,10 @@ normalized step before scaling by the learning rate, in this order:
 The moments are float32, one a parameter, in the parameters' order.
 ``update`` writes the new parameters and moments in place (the reference
 returns new arrays; a full-width model has no room for two copies) and
-returns a new ``step``.  ``opt_state_specs`` waits for the port's
-``dist/``.
+returns a new ``step``.  A data-parallel rank passes the global
+gradient norm (``gnorm``, reduced over every rank's shards) and updates
+its local shards.  ``opt_state_specs`` names the moments' axes as the
+parameters' (`repro_torch.dist.sharding` places them alike).
 """
 from __future__ import annotations
 
@@ -59,13 +61,14 @@ class AdamW:
             [t.clone() for t in m])
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, gnorm=None):
         """One step: ``(params, new state, gnorm)``, the parameters and
-        moments updated in place."""
+        moments updated in place; ``gnorm`` defaults to the norm of
+        ``grads``."""
         ps = _tensors(params)
         step = state.step + 1
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum_of_squares(grads))
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         b1, b2 = self.b1, self.b2
@@ -83,6 +86,11 @@ class AdamW:
         return params, AdamWState(step, state.m, state.v), gnorm
 
 
+def sum_of_squares(grads) -> torch.Tensor:
+    """sum over tensors of sum(g.f32 ** 2): the squared gradient norm."""
+    return sum(torch.sum(torch.square(g.float())) for g in grads)
+
+
 def cosine_schedule(peak_lr: float, warmup: int, total: int,
                     floor_frac: float = 0.1):
     """``lr(step)``: linear warm-up to ``peak_lr`` over ``warmup`` steps,
@@ -98,3 +106,12 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
         return torch.where(step < warmup, warm, cos)
 
     return lr
+
+
+def opt_state_specs(param_specs_tree):
+    """Logical names for an `AdamWState` over parameters named by
+    ``param_specs_tree`` (`repro_torch.models.model.param_specs`, in
+    parameter order): the step is a scalar, each moment takes its
+    parameter's names."""
+    names = list(param_specs_tree.values())
+    return AdamWState(step=(), m=names, v=list(names))
