@@ -22,10 +22,13 @@ wrapper around each launch inside the host window; the phase fails outside
 window over them (device time by kernel, idle share); the kernels' device
 times at the main path's shapes beside their plain versions, bounds and
 ``torch.searchsorted``, with the last mile timed in turns against its
-earlier design (every query searching the batch's widest window); and the
-spread of the windows.  Then every other index family on the same keys and
-queries (``families``): PGM, RadixSpline, RBS, BTree, binary search and
-the Robin Hood hash, each built through ``spec.build`` at its schema
+earlier design (every query searching the batch's widest window) and
+``rmi_bounds`` in three turns with their spread; and the spread of the
+windows.  On amzn also B1 on every 10th key (20M, the ``tune`` phase's
+keys) with an RMI of 2^18 models beside ``torch.searchsorted`` (a
+``timings`` row).  Then every other index family on the same keys and
+queries (``families``): PGM, RadixSpline, RBS, BTree, binary search and,
+on amzn, the Robin Hood hash, each built through ``spec.build`` at its schema
 defaults, run on both backends (the ``cuda`` backend of every family but
 the hash is ``bounded_search`` over the family's own windows) against
 ``np.searchsorted`` or, for the hash, the point oracle, with its launch
@@ -45,8 +48,8 @@ bucket) captured at start and again after the swap, every dispatch one
 replay of a graph that captured one launch of the path's kernel, no
 cache miss outside the swap's re-warm, the metrics endpoint scraped on
 an ephemeral port), and then the same traffic range-routed (``routed``,
-``routed_async``: wiki at shards 2 and 4 on both executors and shards 2 x
-replicas 2 with a rebalance to 4 seats, amzn at shards 4 on the async
+``routed_async``: wiki at shards 2 and 4 on the sync executor and shards
+2 x replicas 2 with a rebalance to 4 seats on the async one, amzn at shards 4 on the async
 executor with a routed swap that builds its shards; every lane on the
 one card; every answer exact, one kernel launch or graph replay a lane a
 dispatch touched, no steady-state cache miss; route skew, padded width a
@@ -155,10 +158,20 @@ KERNEL_SOURCES = {
     "rmi_lookup": ("src/repro_torch/csrc/rmi_lookup.cu",
                    "src/repro/kernels/rmi_lookup/kernel.py:49"),
 }
-# the last mile's designs: the earlier (every query searches the batch's
+# the last mile's windows: the earlier (every query searches the batch's
 # widest window, the kernel given no hi) and the kept one (its own window)
 B1_DESIGNS = ("batch_width", "per_query")
 B1_KEPT = "per_query"
+#: each kernel's search, as its source note gives it (PERF.md)
+KERNEL_DESIGNS = {
+    "bounded_search": "a window per query, probed near its midpoint first "
+                      "(the midpoint's own sector), then balanced",
+    "rmi_lookup": "f32 bounds fused with the search, probed near the "
+                  "prediction first (its sector and the next), then "
+                  "balanced",
+}
+#: rmi_bounds is timed in this many turns, for its spread between them
+RMI_BOUNDS_TURNS = 3
 # every other index family, at its schema defaults (robin_hash is point-only;
 # ibtree shares btree's state and cuda path, so it is not built again)
 FAMILIES = (("pgm", {"eps": 64}), ("radix_spline", {"eps": 32,
@@ -166,6 +179,9 @@ FAMILIES = (("pgm", {"eps": 64}), ("radix_spline", {"eps": 32,
             ("rbs", {"radix_bits": 16}), ("btree", {"sample": 1,
                                                     "fanout": 128}),
             ("binary_search", {}), ("robin_hash", {"load_factor": 0.5}))
+#: the point-only hash is built on this cell alone: its 200M-key build
+#: took 31-34 s a cell (PERF.md), and it launches no kernel
+HASH_CELL = "amzn"
 TRANSFORMS_CELL = "amzn"       # the plan transforms run over its PGM plan
 SCAN_M = 16                    # records a scan materializes
 DELTA_KEYS = 1_000_000         # absent keys of the merged lookups' delta
@@ -199,11 +215,12 @@ TUNE_CONFIGS = 3               # rungs a ladder
 TUNE_QUERIES = 1_000_000       # queries the chosen plan answers
 #: range-routed serving on `serve`'s traffic: (executor, shards, replicas,
 #: rebalance-to seats) in order; a sync run's routed generations are
-#: published prebuilt by the async runs of its shard count
+#: published prebuilt by the async runs of its shard count.  wiki serves
+#: at shards 2 and 4 on the sync executor and at 2 x 2 on the async one,
+#: amzn at shards 4 on the async one
 ROUTED_RUNS = {
     "amzn": (("async", 4, 1, None),),          # with the swap of SWAP_CELL
-    "wiki": (("sync", 2, 1, None), ("async", 2, 1, None),
-             ("sync", 4, 1, None), ("async", 4, 1, None),
+    "wiki": (("sync", 2, 1, None), ("sync", 4, 1, None),
              ("async", 2, 2, 4)),
 }
 AUTOTUNE_CELL = "wiki"
@@ -677,7 +694,7 @@ def phase_profile(p, qt, dataset, log, trace: bool):
 
 def window_spread(count, probes, max_err: int, n: int) -> dict:
     """Spread of one batch's clipped window widths, and the probes the
-    last mile makes: a query on average, and a warp of 32 (its slowest
+    last mile's loop makes (`probes_of`): a query on average, and a warp of 32 (its slowest
     lane) with the queries in batch order and, to show what regrouping
     could save, sorted by trip class inside each block of 256 (trip counts
     31 and 32 share a class)."""
@@ -704,15 +721,26 @@ def window_spread(count, probes, max_err: int, n: int) -> dict:
     }
 
 
-def probes_of(n, lo, hi, width):
-    """What B1's inputs need: each query's window and its own probes,
-    every probe after the first two a 32-byte sector; ``(count, probes,
-    total probes, sector bytes)``."""
+def probes_of(data, q, lo, hi, width, kernel="bounded_search"):
+    """Each query's clipped window and the probes the kernel's loop makes
+    for it (its plain version, step for step, at the kernel's walk depth):
+    ``(count, probes, total probes)``."""
     from repro_torch.kernels.bounded_search import ops as bops
-    _, count = bops.clip_windows(n, lo, width, hi)
-    probes = bops.window_probes(count)
-    return (count, probes, float(probes.sum()),
-            float((probes - 2).clamp(min=0).sum()) * 32)
+    _, count = bops.clip_windows(data.shape[0], lo, width, hi)
+    _, probes = bops.search_windows_plain(
+        data, q, lo, width, hi,
+        bops.NEAR_BLOCKS.get((kernel, data.dtype), -1), with_probes=True)
+    return count, probes, float(probes.sum())
+
+
+def answer_sector_bytes(data, ranks) -> float:
+    """The bytes a search must read at least: the 32-byte sector that
+    holds each query's answer (its rank, clipped to the array), each such
+    sector once however many queries share it."""
+    import torch
+    unit = 32 // data.element_size()
+    pos = ranks.to(torch.int64).clamp(0, data.shape[0] - 1)
+    return float(torch.unique(pos // unit).numel()) * 32
 
 
 def phase_timings(p, qt, dataset, errs, log):
@@ -759,26 +787,29 @@ def phase_timings(p, qt, dataset, errs, log):
     errs["rmi_bounds"] = max(errs["rmi_bounds"], diff(lo32, plo),
                              diff(hi32, phi))
 
-    count, probes, n_probes, sectors = probes_of(n, lo, hi, W)
-    count32, probes32, n_probes32, sectors32 = probes_of(n, lo32, hi32,
-                                                         st.max_err)
+    count, probes, n_probes = probes_of(data, q0, lo, hi, W)
+    count32, probes32, n_probes32 = probes_of(data, q0, lo32, hi32,
+                                              st.max_err, "rmi_lookup")
+    sectors = answer_sector_bytes(data, plain)
     steps = lb_steps(W)           # the batch-width design's formula
     io = lo.element_size() + 8 + 4                 # q and lo in, rank out
     tables = st.branching * 12                      # a2, b2, err
     bounds = {
-        "batch_width": bound(m * io + m * max(steps - 2, 0) * 32,
-                             m * steps * 6),
+        "batch_width": bound(m * io + sectors, m * steps * 6),
         "per_query": bound(m * (io + hi.element_size()) + sectors,
                            n_probes * 6),
         "rmi_bounds": bound(m * (8 + 8) + tables, m * 12),
-        "rmi_lookup": bound(m * (8 + 8) + tables + sectors32,
+        "rmi_lookup": bound(m * (8 + 8) + tables
+                            + answer_sector_bytes(data, prank),
                             m * 12 + n_probes32 * 6),
     }
 
-    # in turns: a, b, bounds, fused, fused, bounds, b, a
+    # in turns: a, b, bounds, fused, fused, bounds, b, a, then bounds a
+    # third time
     order = [*B1_DESIGNS, "rmi_bounds", "rmi_lookup"]
     times = {k: [] for k in order}
-    for k in [*order, *reversed(order)]:
+    for k in [*order, *reversed(order),
+              *["rmi_bounds"] * (RMI_BOUNDS_TURNS - 2)]:
         times[k].append(cuda_ms(fns[k]))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
     library_ms = cuda_ms(lambda: torch.searchsorted(data, q0))
@@ -794,6 +825,7 @@ def phase_timings(p, qt, dataset, errs, log):
             data, q0, lo, W, hi)),
         "bound_ms": bounds[B1_KEPT][0], "bound_by": bounds[B1_KEPT][1],
         "library_ms": library_ms, "design": B1_KEPT,
+        "search": KERNEL_DESIGNS["bounded_search"],
         "designs_ms": {k: ms[k] for k in B1_DESIGNS},
         "designs_bound_ms": {k: bounds[k][0] for k in B1_DESIGNS},
     }, {
@@ -806,8 +838,11 @@ def phase_timings(p, qt, dataset, errs, log):
         "plain_ms": cuda_ms(lambda: rops.rmi_lookup_plain(st, data, q0)),
         "bound_ms": bounds["rmi_lookup"][0],
         "bound_by": bounds["rmi_lookup"][1],
-        "library_ms": library_ms,
+        "library_ms": library_ms, "search": KERNEL_DESIGNS["rmi_lookup"],
         "rmi_bounds_ms": ms["rmi_bounds"],
+        "rmi_bounds_readings_ms": times["rmi_bounds"],
+        "rmi_bounds_spread": (max(times["rmi_bounds"])
+                              - min(times["rmi_bounds"])) / ms["rmi_bounds"],
         "rmi_bounds_plain_ms": cuda_ms(lambda: rops.rmi_bounds_plain(st,
                                                                      q0)),
         "rmi_bounds_bound_ms": bounds["rmi_bounds"][0],
@@ -825,6 +860,62 @@ def phase_timings(p, qt, dataset, errs, log):
     return kernels
 
 
+def phase_timings_tune_keys(dev, cell, args, log):
+    """B1 on every `TUNE_STRIDE`-th key of the cell (20M at the default
+    size), the ``tune`` phase's keys, with an RMI of `BRANCHING` models:
+    its time on its own windows for `TUNE_QUERIES` queries beside
+    ``torch.searchsorted`` on the same queries, in turns (a ``timings``
+    row)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import plan, spec
+    from repro_torch.data import sosd
+    from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.bounded_search import ops as bops
+    from repro_torch.kernels.common import encode_keys
+
+    keys = np.ascontiguousarray(cell["keys"][::TUNE_STRIDE])
+    build = spec.build(spec.IndexSpec("rmi", {"branching": BRANCHING}), keys,
+                       device=dev)
+    p = plan.lower(build, encode_keys(keys, dev))
+    q = sosd.make_queries(keys, TUNE_QUERIES, seed=args.seed)
+    q0 = encode_keys(q, dev)
+    data, n, m = p.data, p.data.shape[0], q0.shape[0]
+    W = p.bounds.max_err
+    lo, hi = p.bounds.predict(p.bounds.state, q0)
+    fns = {"bounded_search": lambda: bs_kernel.launch(data, q0, lo, W, hi),
+           "searchsorted": lambda: torch.searchsorted(data, q0)}
+    got = fns["bounded_search"]()
+    plain = bops.lower_bound_windows_plain(data, q0, lo, W, hi)
+    torch.cuda.synchronize()
+    exact = bool(np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q)))
+    check(torch.equal(got, plain) and exact,
+          f"{TUNE_CELL} B1 on every {TUNE_STRIDE}th key != plain or LB")
+    times = {k: [] for k in fns}
+    for k in [*fns, *reversed(list(fns))]:
+        times[k].append(cuda_ms(fns[k]))
+    count, probes, n_probes = probes_of(data, q0, lo, hi, W)
+    b, by = bound(m * (8 + lo.element_size() + hi.element_size() + 4)
+                  + answer_sector_bytes(data, plain), n_probes * 6)
+    rec = {"phase": "timings", "dataset": f"{TUNE_CELL}_every_"
+           f"{TUNE_STRIDE}th", "n": n, "kernel": "bounded_search",
+           "batch": m, "branching": BRANCHING, "max_err": W,
+           "readings_ms": times, "exact": exact,
+           "ms": sum(times["bounded_search"]) / 2,
+           "plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
+               data, q0, lo, W, hi), reps=3, warmup=1),
+           "library_ms": sum(times["searchsorted"]) / 2,
+           "bound_ms": b, "bound_by": by, "probes": n_probes,
+           "window": window_spread(count, probes, W, n)}
+    emit(rec, log)
+    del build, p, data, q0, lo, hi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def b1_on_windows(p, q0):
     """B1 over one batch's own windows from the plan's predict: its
     device time, its plain version's, the bound and the probes."""
@@ -835,13 +926,13 @@ def b1_on_windows(p, q0):
     data, n, m = p.data, p.data.shape[0], q0.shape[0]
     W = p.bounds.max_err
     lo, hi = p.bounds.predict(p.bounds.state, q0)
-    count, probes, n_probes, sectors = probes_of(n, lo, hi, W)
-    b, by = bound(m * (8 + lo.element_size() + hi.element_size() + 4)
-                  + sectors, n_probes * 6)
     got = bs_kernel.launch(data, q0, lo, W, hi)
     plain = bops.lower_bound_windows_plain(data, q0, lo, W, hi)
     torch.cuda.synchronize()
     check(torch.equal(got, plain), f"bounded_search vs plain on {p.name}")
+    count, probes, n_probes = probes_of(data, q0, lo, hi, W)
+    b, by = bound(m * (8 + lo.element_size() + hi.element_size() + 4)
+                  + answer_sector_bytes(data, plain), n_probes * 6)
     return {"b1_ms": cuda_ms(lambda: bs_kernel.launch(data, q0, lo, W, hi)),
             "b1_plain_ms": cuda_ms(lambda: bops.lower_bound_windows_plain(
                 data, q0, lo, W, hi), reps=3, warmup=1),
@@ -869,6 +960,8 @@ def phase_families(dev, dataset, cell, data, args, log, totals, errs):
     q0 = qt[:BATCH].contiguous()
     out = {}
     for name, hyper in FAMILIES:
+        if name == "robin_hash" and dataset != HASH_CELL:
+            continue
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         build = spec.build(spec.IndexSpec(name, hyper), keys, device=dev)
@@ -1018,9 +1111,10 @@ def phase_whole_array(p, q0, dataset, log):
     probes = (n + 1).bit_length()
     io = m * (8 + 8 + 8 + 4)
     # every query's probe j lies on level j of one search tree, which has
-    # at most 2^j distinct positions: the sectors these queries need at
-    # least.  The other rows' rule (32 bytes a probe after a query's first
-    # two) counts the shared upper levels once a query, over the bound.
+    # at most 2^j distinct positions: the sectors a search of the whole
+    # array reads at least.  ``bound_ms_per_query_rule`` charges 32 bytes
+    # for each probe after a query's first two instead, counting the
+    # shared upper levels once a query.
     distinct = sum(min(1 << j, m, n + 1) for j in range(probes))
     b, by = bound(io + distinct * 32, m * probes * 6)
     rule, _ = bound(io + m * (probes - 2) * 32, m * probes * 6)
@@ -2245,8 +2339,7 @@ def _b1_int32_timing(rec, big, counts, errs):
     lo = torch.clamp(pred.to(torch.int32) - idx.err, 0, idx.n_req)
     width = 2 * idx.err + 2
     m = q.shape[0]
-    _, count = bops.clip_windows(cum.shape[0], lo, width)
-    n_probes = int(bops.window_probes(count).sum())
+    n_probes = int(probes_of(cum, q, lo, None, width)[2])
     b_ms, b_by = bound(m * (4 + 4 + 4) + cum.numel() * 4, n_probes * 6)
     fns = {"b1_int32": lambda: bops.lower_bound_windows(cum, q, lo, width),
            "b1_int32_plain": lambda: bops.lower_bound_windows_plain(
@@ -3141,6 +3234,8 @@ def main(argv=None) -> int:
         profile = phase_profile(p, cell["qt"], ds, log,
                                 trace=ds == MAIN_DATASETS[0])
         kernels = phase_timings(p, cell["qt"], ds, errs, log)
+        if ds == TUNE_CELL:
+            tune_keys_row = phase_timings_tune_keys(dev, cell, args, log)
         data = p.data
         del p
         gc.collect()
@@ -3160,6 +3255,8 @@ def main(argv=None) -> int:
                               {"sync": serve, "async": serve_async})
         cells[ds] = {"end_to_end": e2e, "profile": profile,
                      "kernels": kernels, "families": families,
+                     **({"timings_tune_keys": tune_keys_row}
+                        if ds == TUNE_CELL else {}),
                      "serve": serve, "serve_async": serve_async,
                      "routed": routed}
         if ds == MUTABLE_CELL:

@@ -7,20 +7,24 @@
 // window holds LB.  The window is [clip(lo, 0, n-1), min(hi, lo + max_width
 // - 1, n)], position n as +inf; without hi it is [lo, lo + max_width).
 //
-// What bounds it on this card: 32-byte sectors.  Each query reads 8 + lo
-// (+ hi) bytes and writes 4, then makes ceil(log2(w + 1)) dependent probes
-// for its own window width w into a 1.6 GB array (200M keys); the first
-// probes of neighbouring queries share no sector, so each costs a sector
-// from HBM or L2.
+// What bounds it on this card: distinct 32-byte sectors, read at the card's
+// rate for scattered sectors (~26 G/s on an H100, whatever the order of the
+// probes or their dependences; lookup.cuh and PERF.md say how that was
+// found).  Each query reads 8 + lo (+ hi) bytes and writes 4, and its
+// probes land in a 1.6 GB array (200M keys), where neighbouring queries
+// share no sector.
 //
-// What the design does about it: every query runs its own trip count, not
-// the batch's widest window, so a narrow window costs few probes.  A lane
-// whose search has ended is masked off and issues no loads, so a warp that
-// mixes narrow and wide windows costs the sectors of its lanes' own probes:
-// the time follows the batch's total probes, not each warp's widest window.
-// Regrouping a block's queries by trip count first evens out each warp's
-// trip counts; timed on the H100 it did not pay where the windows are
-// widest (PERF.md), so this kernel does not regroup.
+// What the design does about it: every query runs its own trip count over
+// its own window, and its first probes stay near the window's midpoint (the
+// midpoint, then the edge of its sector, an L1 hit: kNearBlocks = 0 in
+// lookup.cuh's window_lower_bound), because the windows of the learned
+// families are centred on their prediction, so the answer is often in the
+// midpoint's own sector.  It goes no further out than that sector: on the
+// windows of PGM, RadixSpline and RBS the answer is spread across the window,
+// and walking out sector by sector read more sectors than it saved there
+// (PERF.md).  A lane whose search has ended is masked off and issues
+// no loads.  Sorting the batch by window start, globally or inside a block,
+// was timed and buys less than the write-back and the sort cost (PERF.md).
 // The TPU binned queries into 2048-key tiles (capacity 256, a trash row, an
 // overflow fallback) only to give VMEM static blocks; none of that is
 // carried over: one thread per query searches global memory, one code path
@@ -33,11 +37,13 @@
 // index (src/repro/serve/kv_cache.py::LearnedSlotIndex.lookup): cumulative
 // sequence lengths, a few hundred to a few thousand, all in L2, with about
 // a million flat slots as queries.  There a query reads 4 + 4 bytes and
-// writes 4, and its probes hit L2: the bound is the queries' own bytes.
-// Searching int32 in place, rather than widening cum and the slots to int64,
-// saves a cast kernel and its bytes on every lookup.  The TPU's path took
-// its exact fallback (no tiles) for windows wider than 2048; this kernel has
-// one code path for every width, and the answers are the same.
+// writes 4, and its probes hit L1 and L2: the bound is the queries' own
+// bytes, no probe reaches device memory, and there is no sector to save, so
+// that instance keeps the balanced search alone (kNearBlocks = -1), as
+// before.  Searching int32 in place, rather than widening cum and the slots
+// to int64, saves a cast kernel and its bytes on every lookup.  The TPU's
+// path took its exact fallback (no tiles) for windows wider than 2048; this
+// kernel has one code path for every width, and the answers are the same.
 #include <climits>
 
 #include "lookup.cuh"
@@ -45,6 +51,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+// How far the search walks out from a window's midpoint (lookup.cuh's
+// window_lower_bound): int64 keys to the edge of the midpoint's sector, the
+// int32 slot index not at all.
+template <typename KeyT>
+constexpr int kNearBlocks = sizeof(KeyT) == 8 ? 0 : -1;
 
 template <typename KeyT, typename LoT, typename HiT>
 __global__ void __launch_bounds__(kThreads)
@@ -58,7 +69,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long hi = hi_in != nullptr ? (long long)hi_in[i] : LLONG_MAX;
   const lookup::Window w =
       lookup::clip_window((long long)lo_in[i], hi, n, max_width);
-  out[i] = lookup::window_lower_bound<KeyT>(data, (int)n, queries[i], w);
+  out[i] = lookup::window_lower_bound<kNearBlocks<KeyT>>(data, (int)n,
+                                                         queries[i], w);
 }
 
 struct Args {

@@ -5,6 +5,20 @@
 // Keys arrive in the port's codec: uint64 with the sign bit flipped, stored
 // as int64, so a signed compare is the uint64 compare.  B1 also takes int32
 // keys, compared as signed.
+//
+// What bounds the search on this card: distinct 32-byte sectors, at the
+// card's rate for scattered sectors.  Timed on an H100 (PERF.md), a
+// gather that reads the same probe addresses with no dependence between its
+// loads takes B1's own time, and both cells run at ~26 G distinct sectors/s
+// (0.83 TB/s of 32-byte sectors, a quarter of the streaming rate), whatever
+// the probes per query.  Handing the batch over sorted by window start buys
+// at most 16%, and writing each rank back to its query's position takes most
+// of that back; sorting inside tiles of 1,024 to 16,384 queries buys 4-7%.
+// So the loop reads fewer sectors instead: a learned model's window is
+// centred on its prediction, and the answer is usually within a few keys of
+// the midpoint (on wiki's RMI windows a median 5 keys from it), while a
+// balanced search's second probe lands a quarter of the window away, in
+// another sector.  `window_lower_bound` first probes near the midpoint.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,25 +50,79 @@ __device__ __forceinline__ Window clip_window(long long lo, long long hi,
   return {(int)lo, (unsigned)(count < 0 ? 0 : count)};
 }
 
-// lo plus the count of keys below q in the window: the branchless binary
-// search, run while the window is non-empty, so a query makes
-// ceil(log2(count + 1)) probes, each one dependent load.  KeyT is long long
-// (the codec's keys) or int (int32 keys compared as signed, such as the KV
-// cache's cumulative lengths); the loop is the same for both.
+// A window of at most this many positions is searched near its midpoint
+// first (`window_lower_bound`).  A wider one's answer is rarely near it: a
+// tenth of amzn's RMI windows are wider, and a tenth of its answers lie
+// 1.97M keys or more from their window's midpoint.
+constexpr unsigned kNearMax = 4096;
+
+// Whether data[p] < q, position n comparing as +inf (the load is clamped
+// and always made, so the probe is branch-free).
 template <typename KeyT>
+__device__ __forceinline__ bool below(const KeyT* __restrict__ data,
+                                      unsigned n, KeyT q, unsigned p) {
+  return (__ldg(data + (p < n ? p : n - 1)) < q) & (p < n);
+}
+
+// lo plus the count of keys below q in the window.  KeyT is long long (the
+// codec's keys) or int (int32 keys compared as signed, such as the KV
+// cache's cumulative lengths).
+//
+// kNearBlocks < 0: the balanced search alone, the midpoint of what is left
+// while it is non-empty, ceil(log2(count + 1)) probes, each one dependent
+// load.  kNearBlocks >= 0, for a window of 1 to kNearMax positions: first
+// the midpoint; then the edge of the midpoint's own 32-byte sector on the
+// side the answer lies, an L1 hit; then up to kNearBlocks sectors 1, 3,
+// 7, ... further out, while no probe has bracketed the answer; then the
+// balanced search over what is left.  Every probe narrows the window to the
+// side that holds the answer, so each form returns the same count.
+template <int kNearBlocks, typename KeyT>
 __device__ __forceinline__ int window_lower_bound(
     const KeyT* __restrict__ data, int n, KeyT q, Window w) {
-  int lo = w.lo;
-  unsigned count = w.count;
-  while (count > 0) {
-    const unsigned step = count >> 1;
-    const int idx = lo + (int)step;
-    const KeyT probe = __ldg(data + (idx < n ? idx : n - 1));
-    const bool right = (probe < q) && (idx < n);
-    lo = right ? idx + 1 : lo;
-    count = right ? count - step - 1 : step;
+  constexpr unsigned kSector = 32 / sizeof(KeyT);
+  const unsigned un = (unsigned)n;
+  unsigned a = (unsigned)w.lo, b = a + w.count;
+  if (kNearBlocks >= 0 && w.count - 1u < kNearMax) {
+    const unsigned mid = a + (w.count >> 1);
+    unsigned step = kSector;
+    if (below(data, un, q, mid)) {
+      a = mid + 1;
+      unsigned p = mid | (kSector - 1);
+      for (int k = 0; k <= kNearBlocks && p < b; ++k) {
+        if (p > mid) {
+          if (!below(data, un, q, p)) {
+            b = p;
+            break;
+          }
+          a = p + 1;
+        }
+        p += step;
+        step <<= 1;
+      }
+    } else {
+      b = mid;
+      unsigned p = mid & ~(kSector - 1);
+      for (int k = 0; k <= kNearBlocks && p >= a; ++k) {
+        if (p < mid) {
+          if (below(data, un, q, p)) {
+            a = p + 1;
+            break;
+          }
+          b = p;
+        }
+        if (p < step) break;
+        p -= step;
+        step <<= 1;
+      }
+    }
   }
-  return lo;
+  while (a < b) {
+    const unsigned mid = a + ((b - a) >> 1);
+    const bool right = below(data, un, q, mid);
+    a = right ? mid + 1 : a;
+    b = right ? b : mid;
+  }
+  return (int)a;
 }
 
 // ---------------------------------------------------------------------------

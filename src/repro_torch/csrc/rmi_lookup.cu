@@ -18,14 +18,23 @@
 //               query's own window, as bounded_search.cu does.
 //
 // What bounds it on this card: rmi_bounds by bytes (8 in, 8 out a query,
-// and three random 32-byte L2 sectors of the table); rmi_lookup by the search's
-// sectors, as B1.
+// and three random 32-byte L2 sectors of the table); rmi_lookup by the
+// search's distinct sectors, as B1 (lookup.cuh says how that was found).
 //
 // What the design does about it: the stage-2 tables (a2, b2, err; 3 MB at
 // 2^18 buckets) stay resident in the 50 MB L2, so a query's three gathers
 // are L2 hits.  A packed 16-byte record a bucket, read with one load, was
-// timed on the H100 and did not pay (PERF.md).  The TPU sorted queries by
-// bucket and prefetched two 2048-row table tiles per 1024-query block
+// timed on the H100 and did not pay (PERF.md).  The fused search starts at
+// the window's midpoint, which is the RMI's own prediction (its window is
+// floor(pred) - err .. ceil(pred) + err), and walks out one sector further
+// than B1 does (kNearBlocks = 1: the midpoint, the edge of its sector, then
+// the next sector) before the balanced search: most answers lie within a
+// few keys of the prediction (on wiki a median 5, nine in ten within 12),
+// so most queries touch one or two sectors instead of a balanced search's
+// three or more.  B1 stops at the midpoint's own sector because its windows
+// come from every family, and on PGM's, RadixSpline's and RBS's the extra
+// sector read more than it saved (PERF.md).  The TPU sorted queries
+// by bucket and prefetched two 2048-row table tiles per 1024-query block
 // because its per-query HBM gathers are slow and its table could not sit in
 // VMEM; here no sort, no unsort, no tile fallback.  The fused entry writes
 // no lo or hi to device memory and writes the rank as the int64 the plan
@@ -35,6 +44,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// How far the fused search walks out from the window's midpoint, the RMI's
+// prediction (lookup.cuh's window_lower_bound): one sector past its own.
+constexpr int kNearBlocks = 1;
 
 __global__ void __launch_bounds__(kThreads)
     rmi_bounds_kernel(const long long* __restrict__ queries, long long m,
@@ -62,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
   int lo, hi;
   lookup::rmi_bounds_one(model, a2, b2, err, q, lo, hi);
   const lookup::Window w = lookup::clip_window(lo, hi, model.n, max_err);
-  out[i] = lookup::window_lower_bound(data, model.n, q, w);
+  out[i] = lookup::window_lower_bound<kNearBlocks>(data, model.n, q, w);
 }
 
 lookup::RmiModel make_model(float c0, float c1, float x0, float inv_range,

@@ -10,8 +10,10 @@ verification ran under XLA's FMA contraction.
 `rmi_bounds` and `rmi_lookup` send a CUDA tensor to the kernel and a CPU
 tensor to their plain versions.  On the card `rmi_lookup` is one launch,
 the bounds feeding the bounded search in registers; its plain version is
-`rmi_bounds_plain` followed by `lower_bound_windows_plain` over each
-query's ``(lo, hi)``.
+`rmi_bounds_plain` followed by `search_windows_plain` over each query's
+``(lo, hi)``, walking out as far past the midpoint as ``rmi_lookup.cu``'s
+``kNearBlocks`` (the bounded search's ``NEAR_BLOCKS`` table): the window is
+centred on the RMI's prediction.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.bounded_search.ops import lower_bound_windows_plain
+from repro_torch.kernels.bounded_search.ops import (NEAR_BLOCKS,
+                                                    search_windows_plain)
 from repro_torch.kernels.common import (bucket_errors, encode_keys,
                                         resolve_device)
 from repro_torch.kernels.rmi_lookup import kernel
@@ -138,8 +141,9 @@ def rmi_lookup_plain(state: F32RMIState, data, queries):
     """The fused kernel's function as plain torch ops: the bounds, then
     the search over each query's own window, as int64 ranks."""
     lo, hi = rmi_bounds_plain(state, queries)
-    return lower_bound_windows_plain(data, queries, lo, state.max_err,
-                                     hi).to(torch.int64)
+    return search_windows_plain(
+        data, queries, lo, state.max_err, hi,
+        NEAR_BLOCKS["rmi_lookup", torch.int64]).to(torch.int64)
 
 
 def rmi_lookup(state: F32RMIState, data, queries):

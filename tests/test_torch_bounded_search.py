@@ -1,9 +1,16 @@
 """The port's bounded last mile (plain version on the CPU) vs the
-reference's Pallas op in interpret mode and np.searchsorted.
+reference's Pallas op in interpret mode, np.searchsorted and the earlier
+design's loop.
 
 Each query searches its own window and stops when it is empty: the
 result is the clipped ``lo`` plus the count of keys below ``q`` in the
-window, equal to LB wherever the window holds it.  Tolerance: exact."""
+window, equal to LB wherever the window holds it.  The search probes
+near the window's midpoint first (``lookup.cuh``); the balanced loop it
+replaced is kept here as an oracle (`_balanced_oracle`).  Tolerance:
+exact."""
+import re
+from pathlib import Path
+
 import jax
 
 jax.config.update("jax_enable_x64", True)  # uint64 key planes
@@ -19,12 +26,32 @@ from repro.core import search as rsearch
 from repro.data import sosd as rsosd
 from repro.kernels.bounded_search.ops import lower_bound_windows as r_lbw
 from repro_torch.kernels.bounded_search import kernel
+from repro_torch.kernels.bounded_search import ops as bops
 from repro_torch.kernels.bounded_search.ops import (clip_windows,
                                                     lower_bound_windows,
                                                     lower_bound_windows_plain,
+                                                    search_windows_plain,
                                                     window_probes)
 from repro_torch.kernels.bounded_search.ref import lower_bound_windows_ref
 from repro_torch.kernels.common import encode_keys
+
+
+CSRC = Path(kernel.__file__).resolve().parents[2] / "csrc"
+
+
+def _balanced_oracle(data, queries, lo, max_width, hi=None):
+    """The search of the earlier design, step for step: the midpoint of
+    what is left while the window is non-empty."""
+    n = data.shape[0]
+    pos, count = clip_windows(n, lo, max_width, hi)
+    for _ in range(min(max(int(max_width), 0), n + 1).bit_length()):
+        step = count // 2
+        idx = pos + step
+        probe = data[torch.clamp(idx, max=n - 1)]
+        right = (probe < queries) & (idx < n) & (count > 0)
+        pos = torch.where(right, idx + 1, pos)
+        count = torch.where(right, count - step - 1, step)
+    return pos.to(torch.int32)
 
 
 def _both(keys, q, lo, width, **ref_kw):
@@ -200,6 +227,23 @@ def test_windows_not_holding_lb_count_inside_the_window(width):
     start, count = clip_windows(n, torch.from_numpy(lo), width,
                                 torch.from_numpy(hi))
     assert ((got >= start.numpy()) & (got <= (start + count).numpy())).all()
+    d, qt = encode_keys(keys, "cpu"), encode_keys(q, "cpu")
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    oracle = _balanced_oracle(d, qt, lo_t, width, hi_t).numpy()
+    np.testing.assert_array_equal(got, oracle)
+    for near_blocks in (-1, 0, 1, 3):            # every walk, same count
+        np.testing.assert_array_equal(search_windows_plain(
+            d, qt, lo_t, width, hi_t, near_blocks).numpy(), oracle)
+    # without hi the window is the reference op's [lo, lo + width): the
+    # two agree wherever that window holds LB
+    lb, start = np.searchsorted(keys, q), np.clip(lo, 0, n - 1)
+    holds = (start <= lb) & (lb <= start + width - 1)
+    ref = np.asarray(r_lbw(jnp.asarray(keys), jnp.asarray(q),
+                           jnp.asarray(start, jnp.int32), max_width=width,
+                           interpret=True))
+    np.testing.assert_array_equal(
+        lower_bound_windows(d, qt, lo_t, width).numpy()[holds], ref[holds])
+    np.testing.assert_array_equal(ref[holds], lb[holds])
 
 
 @pytest.mark.parametrize("lo_dtype,hi_dtype", [
@@ -224,6 +268,11 @@ def test_window_edge_cases(case, lo_dtype, hi_dtype):
     got = _plain(keys, q, lo, hi, width, lo_dtype, hi_dtype)
     np.testing.assert_array_equal(got, _count_in_window(keys, q, lo, hi,
                                                         width))
+    lo_t = torch.tensor(np.asarray(lo, np.int64), dtype=lo_dtype)
+    hi_t = torch.tensor(np.asarray(hi, np.int64), dtype=hi_dtype)
+    np.testing.assert_array_equal(got, _balanced_oracle(
+        encode_keys(keys, "cpu"), encode_keys(q, "cpu"), lo_t, width,
+        hi_t).numpy())
     if case in ("width_one", "hi_at_or_past_n"):     # windows hold LB
         np.testing.assert_array_equal(got, lb)
     if case in ("empty", "hi_below_lo"):             # nothing is probed
@@ -254,3 +303,170 @@ def test_window_probes_is_the_bit_length():
     np.testing.assert_array_equal(
         window_probes(count).numpy(),
         [int(c).bit_length() for c in count.tolist()])
+
+
+@pytest.mark.parametrize("near_blocks", [-1, 0, 1, 2])
+@pytest.mark.parametrize("width", [1, 3, 4, 5, 17, 64, 4_096, 4_097, 9_000])
+def test_near_midpoint_search_counts_as_the_balanced_loop(width,
+                                                          near_blocks):
+    """The near-midpoint walk, at every depth, against the earlier loop,
+    np.searchsorted and the reference op: windows centred on the answer,
+    off it by a few keys, at either end of the window, with duplicate
+    keys and UINT64_MAX pad keys, and windows wider than the near search
+    takes (4,096 positions)."""
+    rng = np.random.default_rng(width * 7 + near_blocks)
+    keys = np.sort(np.concatenate([
+        rng.integers(0, 2**64 - 1, 6_000, dtype=np.uint64),
+        np.repeat(rng.integers(0, 2**64 - 1, 40, dtype=np.uint64), 25),
+        np.full(100, 2**64 - 1, np.uint64)]))     # pad keys, as the plan's
+    n = len(keys)
+    q = np.concatenate([keys[rng.integers(0, n, 3_000)],
+                        rng.integers(0, 2**64 - 1, 1_000, dtype=np.uint64),
+                        np.array([0, 2**64 - 1], np.uint64)])
+    lb = np.searchsorted(keys, q)
+    off = np.concatenate([rng.integers(-6, 7, 2_000),
+                          rng.integers(-width, width + 1, len(q) - 2_000)])
+    mid = lb - off                               # the window's midpoint
+    lo = mid - width // 2
+    hi = lo + width - 1
+    d, qt = encode_keys(keys, "cpu"), encode_keys(q, "cpu")
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    got = search_windows_plain(d, qt, lo_t, width, hi_t, near_blocks)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), _balanced_oracle(d, qt, lo_t, width, hi_t).numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _count_in_window(keys, q, lo, hi, width))
+    holds = (np.clip(lo, 0, n - 1) <= lb) & (lb <= hi)
+    np.testing.assert_array_equal(got.numpy()[holds], lb[holds])
+    # the reference op's window is [lo, lo + width), without hi: the two
+    # agree wherever it holds LB
+    start = np.clip(lo, 0, n - 1)
+    held = (start <= lb) & (lb <= start + width - 1)
+    ref = np.asarray(r_lbw(jnp.asarray(keys), jnp.asarray(q),
+                           jnp.asarray(start, jnp.int32), max_width=width,
+                           interpret=True))
+    np.testing.assert_array_equal(search_windows_plain(
+        d, qt, torch.from_numpy(start), width, None,
+        near_blocks).numpy()[held], ref[held])
+    assert held.sum() > 500
+
+
+def test_int32_keys_keep_the_balanced_loop():
+    """The slot index's int32 keys take no near-midpoint walk: the plain
+    version is the earlier loop for them, as the kernel's int32
+    instance is."""
+    assert bops.NEAR_BLOCKS["bounded_search", torch.int32] == -1
+    assert bops.NEAR_BLOCKS["bounded_search", torch.int64] == 0
+    rng = np.random.default_rng(5)
+    cum = torch.from_numpy(np.cumsum(rng.integers(1, 9, 257)).astype(
+        np.int32))
+    slots = torch.arange(int(cum[-1]) + 3, dtype=torch.int32)
+    lo = torch.zeros_like(slots)
+    got = lower_bound_windows_plain(cum, slots, lo, 258)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.searchsorted(cum.numpy(), slots.numpy()))
+    assert torch.equal(got, _balanced_oracle(cum, slots, lo, 258))
+
+
+def test_plain_constants_are_the_kernels():
+    """`NEAR_MAX`, the sector and each key type's `NEAR_BLOCKS` are the
+    constants the CUDA sources compile in."""
+    cuh = (CSRC / "lookup.cuh").read_text()
+    cu = (CSRC / "bounded_search.cu").read_text()
+    assert int(re.search(r"kNearMax = (\d+);", cuh).group(1)) \
+        == bops.NEAR_MAX
+    assert re.search(r"kSector = (\d+) / sizeof\(KeyT\)", cuh).group(1) \
+        == str(bops.SECTOR_BYTES)
+    assert re.search(r"kNearBlocks = sizeof\(KeyT\) == 8 \? (-?\d+) : "
+                     r"(-?\d+);", cu).groups() \
+        == (str(bops.NEAR_BLOCKS["bounded_search", torch.int64]),
+            str(bops.NEAR_BLOCKS["bounded_search", torch.int32]))
+
+
+def _kernel_loop(data, n, q, a, count, near_blocks, unit):
+    """``lookup.cuh``'s ``window_lower_bound`` for one query, transcribed
+    with its branches and breaks: ``(rank, loads of data)``."""
+    loads = 0
+
+    def below(p):
+        nonlocal loads
+        loads += 1
+        return p < n and data[min(p, n - 1)] < q
+
+    b = a + count
+    if near_blocks >= 0 and 1 <= count <= bops.NEAR_MAX:
+        mid = a + count // 2
+        step = unit
+        if below(mid):
+            a, p = mid + 1, mid | (unit - 1)
+            for _ in range(near_blocks + 1):
+                if p >= b:
+                    break
+                if p > mid:
+                    if not below(p):
+                        b = p
+                        break
+                    a = p + 1
+                p, step = p + step, step * 2
+        else:
+            b, p = mid, mid & ~(unit - 1)
+            for _ in range(near_blocks + 1):
+                if p < a:
+                    break
+                if p < mid:
+                    if below(p):
+                        a = p + 1
+                        break
+                    b = p
+                if p < step:
+                    break
+                p, step = p - step, step * 2
+    while a < b:
+        mid = a + (b - a) // 2
+        if below(mid):
+            a = mid + 1
+        else:
+            b = mid
+    return a, loads
+
+
+@pytest.mark.parametrize("near_blocks", [-1, 0, 1, 3])
+@pytest.mark.parametrize("dtype", [np.uint64, np.int32])
+def test_plain_probes_are_the_kernel_loops_loads(near_blocks, dtype):
+    """`search_windows_plain`'s ranks and probes against the kernel's loop
+    transcribed one query at a time: windows centred near the answer, off
+    it, at the array's ends, empty, and wider than `NEAR_MAX`.  The
+    balanced loop makes at most `window_probes` probes."""
+    rng = np.random.default_rng(near_blocks + 10)
+    if dtype == np.uint64:
+        keys = np.sort(rng.integers(0, 2**64 - 1, 9_000, dtype=np.uint64))
+        q = np.concatenate([keys[rng.integers(0, 9_000, 300)],
+                            rng.integers(0, 2**64 - 1, 100,
+                                         dtype=np.uint64)])
+        d, qt = encode_keys(keys, "cpu"), encode_keys(q, "cpu")
+    else:
+        keys = np.cumsum(rng.integers(1, 9, 9_000)).astype(np.int32)
+        q = rng.integers(0, int(keys[-1]) + 5, 400).astype(np.int32)
+        d, qt = torch.from_numpy(keys), torch.from_numpy(q)
+    n = len(keys)
+    lb = np.searchsorted(keys, q)
+    width = rng.choice([0, 1, 2, 7, 64, 600, 4_096, 6_000], len(q))
+    lo = np.clip(lb - width // 2 + rng.integers(-9, 10, len(q)), -5, n + 5)
+    lo[:20] = n - 1 - np.arange(20)                  # at the array's end
+    hi = lo + width - 1
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    got, probes = search_windows_plain(d, qt, lo_t, 6_000, hi_t, near_blocks,
+                                       with_probes=True)
+    assert torch.equal(got, search_windows_plain(d, qt, lo_t, 6_000, hi_t,
+                                                 near_blocks))
+    assert probes.dtype == torch.int64
+    start, count = clip_windows(n, lo_t, 6_000, hi_t)
+    data, unit = d.tolist(), 32 // d.element_size()
+    want = [_kernel_loop(data, n, int(qt[i]), int(start[i]), int(count[i]),
+                         near_blocks, unit) for i in range(len(q))]
+    np.testing.assert_array_equal(got.numpy(), [r for r, _ in want])
+    np.testing.assert_array_equal(probes.numpy(), [k for _, k in want])
+    if near_blocks < 0:
+        assert (probes <= window_probes(count)).all()
+        assert (probes >= window_probes(count) - 1).all()

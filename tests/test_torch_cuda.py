@@ -9,6 +9,7 @@ import gc
 import threading
 import time
 import weakref
+from functools import lru_cache
 
 import numpy as np
 import pytest
@@ -125,6 +126,110 @@ def test_bounded_search_per_query_hi_vs_plain(card, width, lo_dtype,
     assert torch.equal(got, lower_bound_windows_plain(d, qt, lo_t, width,
                                                       hi_t))
     np.testing.assert_array_equal(got.cpu().numpy()[:k], lb[:k])
+
+
+ORDERS = ("random", "sorted", "reversed", "one_key", "one_region")
+# serving buckets (1, 64, 4,096), a block of 256 threads one under, at and
+# one over, and a size that is not a multiple of a block
+SIZES = (1, 64, 255, 256, 257, 1_001, 4_096)
+PAD = 2**64 - 1                       # the plan's pad key (INT64_MAX encoded)
+
+
+def _ordered(keys, m, order, rng):
+    """``m`` queries in one of `ORDERS`: present and absent keys at random,
+    the same sorted or reversed, every query on one key, or every query's
+    LB inside one 2 MB stretch of the keys."""
+    n = len(keys)
+    if order == "one_key":
+        return np.full(m, keys[n // 3], np.uint64)
+    if order == "one_region":
+        span = min(n - n // 2, (2 << 20) // 8)
+        return keys[n // 2 + rng.integers(0, span, m)]
+    q = np.concatenate([keys[rng.integers(0, n, m - m // 4)],
+                        rng.integers(0, 2**64 - 1, m // 4, dtype=np.uint64)])
+    q[rng.integers(0, m, min(m, 3))] = PAD
+    if order == "sorted":
+        q = np.sort(q)
+    elif order == "reversed":
+        q = np.sort(q)[::-1].copy()
+    return q
+
+
+def _count_in_window(keys, q, lo, hi, width):
+    n = len(keys)
+    start = np.clip(lo, 0, n - 1)
+    last = np.minimum(np.minimum(hi, start + width - 1), n)
+    real = np.clip(np.minimum(last, n - 1) - start + 1, 0, None)
+    return start + np.clip(np.searchsorted(keys, q) - start, 0, real)
+
+
+@pytest.mark.parametrize("m", SIZES)
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_bounded_search_orders_sizes_and_windows(card, order, m, idx_dtype):
+    """B1 over keys ending in pad keys, every query order and serving
+    size, with windows centred on LB or off it by a few keys (the near
+    search's case), wider than the near search takes (5,000 and 9,000
+    positions) and, for a quarter of the queries, placed anywhere (empty,
+    hi < lo, lo > n - 1): bit for bit with the plain version, equal to
+    np.searchsorted where the window holds LB, one launch."""
+    rng = np.random.default_rng(m * 31 + ORDERS.index(order))
+    keys = np.concatenate([np.unique(rng.integers(
+        0, 2**64 - 2, 300_000, dtype=np.uint64)), np.full(64, PAD,
+                                                          np.uint64)])
+    n = len(keys)
+    q = _ordered(keys, m, order, rng)
+    lb = np.searchsorted(keys, q)
+    width = 9_000
+    half = rng.choice([0, 2, 40, 2_500, 4_500], m)
+    lo = lb - half + rng.integers(-6, 7, m)
+    hi = lo + 2 * half + rng.integers(0, 3, m)
+    k = m - m // 4                      # these windows are placed anywhere
+    lo[k:] = rng.integers(-5, n + 5, m - k)
+    hi[k:] = lo[k:] + rng.integers(-3, width + 3, m - k)
+    d, qt = encode_keys(keys, card), encode_keys(q, card)
+    lo_t = torch.from_numpy(lo).to(card, idx_dtype)
+    hi_t = torch.from_numpy(np.clip(hi, -2**31, 2**31 - 1)).to(card,
+                                                                idx_dtype)
+    before = bs_kernel.launch.launches
+    got = lower_bound_windows(d, qt, lo_t, width, hi=hi_t)
+    torch.cuda.synchronize()
+    assert bs_kernel.launch.launches == before + 1
+    assert torch.equal(got, lower_bound_windows_plain(d, qt, lo_t, width,
+                                                      hi_t))
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got, _count_in_window(
+        keys, q, lo, hi_t.cpu().numpy().astype(np.int64), width))
+    start = np.clip(lo, 0, n - 1)
+    holds = (start <= lb) & (lb <= np.minimum(hi, start + width - 1))
+    np.testing.assert_array_equal(got[holds], lb[holds])
+
+
+@lru_cache(maxsize=None)
+def _fused_cell(ds, branching):
+    keys = sosd.generate(ds, 300_000, seed=17)
+    return keys, ops.prepare_f32_state(keys, branching=branching,
+                                       device="cuda")
+
+
+@pytest.mark.parametrize("m", [1, 64, 257, 4_096, 4_097])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("branching", [512, 4096, 2**18])
+def test_fused_lookup_orders_and_sizes(card, branching, order, m):
+    """The fused kernel over every query order and serving size, on amzn
+    (wide windows) at 512 models and wiki (narrow) otherwise: bit for bit
+    with its plain version and np.searchsorted, one launch."""
+    ds = "amzn" if branching == 512 else "wiki"
+    keys, st = _fused_cell(ds, branching)
+    rng = np.random.default_rng(m + branching)
+    q = _ordered(keys, m, order, rng)
+    d, qt = encode_keys(keys, card), encode_keys(q, card)
+    before = rmi_kernel.launch_lookup.launches
+    pos = ops.rmi_lookup(st, d, qt)
+    torch.cuda.synchronize()
+    assert rmi_kernel.launch_lookup.launches == before + 1
+    assert torch.equal(pos, ops.rmi_lookup_plain(st, d, qt))
+    np.testing.assert_array_equal(pos.cpu().numpy(), np.searchsorted(keys, q))
 
 
 def test_plan_backends_on_the_card(card):

@@ -23,7 +23,9 @@ from repro.kernels.rmi_lookup import ops as r_ops
 from repro.kernels.rmi_lookup import ref as r_ref
 from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import kernel
+from repro_torch.kernels.bounded_search.ops import NEAR_BLOCKS
 from repro_torch.kernels.rmi_lookup import ops, ref
+from test_torch_bounded_search import _balanced_oracle
 
 EXTREMES = np.array([0, 1, 2**63, 2**64 - 1], np.uint64)
 
@@ -141,3 +143,34 @@ def test_lookup_ref_is_searchsorted():
     q = rsosd.make_queries(keys, 1_000, seed=2)
     got = ref.rmi_lookup_ref(encode_keys(keys, "cpu"), encode_keys(q, "cpu"))
     np.testing.assert_array_equal(got.numpy(), np.searchsorted(keys, q))
+
+
+@pytest.mark.parametrize("branching", [512, 4096, 2**18])
+@pytest.mark.parametrize("ds", ["amzn", "wiki"])
+def test_fused_plain_walks_one_sector_past_the_midpoint(ds, branching):
+    """The fused plain version walks its `NEAR_BLOCKS` sectors out from the
+    window's midpoint, the RMI's prediction, then searches balanced: the
+    same ranks as the earlier loop over the same bounds and as
+    np.searchsorted, with queries at the keys, between them and at the
+    codec's extremes."""
+    keys = rsosd.generate(ds, 30_000, seed=13)
+    q = np.concatenate([rsosd.make_queries(keys, 3_000, seed=14,
+                                           present_frac=0.5), EXTREMES,
+                        keys[:3], keys[-3:]])
+    st = ops.prepare_f32_state(keys, branching=branching, device="cpu")
+    d, qt = encode_keys(keys, "cpu"), encode_keys(q, "cpu")
+    lo, hi = ops.rmi_bounds_plain(st, qt)
+    got = ops.rmi_lookup_plain(st, d, qt)
+    assert NEAR_BLOCKS["rmi_lookup", torch.int64] == 1
+    assert torch.equal(got, _balanced_oracle(d, qt, lo, st.max_err,
+                                             hi).to(torch.int64))
+    np.testing.assert_array_equal(got.numpy(), np.searchsorted(keys, q))
+
+
+def test_fused_near_blocks_is_the_kernels():
+    src = (Path(kernel.__file__).resolve().parents[2] / "csrc"
+           / "rmi_lookup.cu").read_text()
+    assert int(re.search(r"constexpr int kNearBlocks = (-?\d+);",
+                         src).group(1)) \
+        == NEAR_BLOCKS["rmi_lookup", torch.int64]
+    assert "window_lower_bound<kNearBlocks>" in src
