@@ -3,7 +3,7 @@
 and its training on one NVIDIA card.
 
     python3 chip_smoke.py [--n 200000000] [--seed 0] [--out PATH]
-                          [--only dist]
+                          [--only dist|cards]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain torch version bit for bit,
@@ -53,7 +53,11 @@ an ephemeral port), and then the same traffic range-routed (``routed``,
 executor with a routed swap that builds its shards; every lane on the
 one card; every answer exact, one kernel launch or graph replay a lane a
 dispatch touched, no steady-state cache miss; route skew, padded width a
-lane, graphs and re-warm time beside the broadcast run).  On wiki the
+lane, graphs and re-warm time beside the broadcast run).  On amzn the
+split of a batch over several devices on the one card (``two_lanes``:
+the `serve` phase's RMI generation served over ``["cuda:0", "cuda:0"]``
+beside one card, 1,000 requests, the answers and the health records
+equal).  On wiki the
 mutable service (``mutable``: a YCSB-B
 and a YCSB-E trace, zipfian, through the async executor, a forced
 compaction and the threshold's own, every answer against
@@ -116,7 +120,15 @@ device summary ``{"ok": true, "device": {...}}``.  Full results go to
 on several cards (``dist_train`` at one rank, at every card and on one
 rank with a card's share of the batch: the second's losses and grad
 norms held against the first's within limits that the third must fail)
-and prints no ``kernels`` line.
+and prints no ``kernels`` line.  ``--only cards`` runs the device, build
+and cards phases alone on four cards (fewer fail): the lookup service
+over 1, 2 and 4 cards on the amzn cell (``cards_replicas``: each card's
+replica of the RMI generation against the first card's, bit for bit;
+then `serve`'s traffic: RMI broadcast sync and async at 1, 2 and 4
+cards, a hot swap in the 4-card async run, PGM async at 4, routed async
+at 4 x 1 and 2 x 2; every answer exact and equal to the 1-card run's,
+each card's launches and peak memory, ``cards_summary``), and prints no
+``kernels`` line.
 
 Kernel launches: each kernel wrapper counts the launches it makes, and a
 launch it makes while its stream is captured into a CUDA graph is counted
@@ -201,11 +213,13 @@ SWAP_CELL = "amzn"
 ASYNC_SLOTS = 4                # the async executor's slot ring (serve_async)
 # the mutable service: the serve cell's PGM on wiki, a YCSB-B and a YCSB-E
 # trace (the reference's MIXES), zipfian, scans of the reference's default
-# length; a trace's ~1,000 inserts cross the threshold once after the
+# length; a trace's ~800 inserts cross the threshold once after the
 # compaction forced at its first quarter
 MUTABLE_CELL = "wiki"
 MUTABLE_MIXES = ("ycsb_b", "ycsb_e")
-MUTABLE_OPS = 20_000
+#: cut from 20,000 to pay for the `two_lanes` check (PERF.md §4); ~600
+#: inserts still follow the forced compaction, past the threshold's 500
+MUTABLE_OPS = 16_000
 MUTABLE_RANGE = 64
 MUTABLE_THRESHOLD = 500
 TUNE_CELL = "amzn"
@@ -223,6 +237,24 @@ ROUTED_RUNS = {
     "wiki": (("sync", 2, 1, None), ("sync", 4, 1, None),
              ("async", 2, 2, 4)),
 }
+#: the one-card run's check of the split: amzn's RMI served over
+#: ["cuda:0", "cuda:0"] (two slices a batch on the one card) beside one
+#: card, this many requests of SERVE_KEYS keys each
+TWO_LANE_REQUESTS = 1_000
+#: ``--only cards``: `serve`'s traffic on the amzn cell over 1, 2 and 4
+#: cards: (index, executor, cards, shards, replicas, swap) in order; the
+#: 1-card sync run's answers are the ones every other run is held to
+CARDS = 4
+CARDS_CELL = "amzn"
+CARDS_RUNS = (("rmi", "sync", 1, 1, 1, False),
+              ("rmi", "async", 1, 1, 1, False),
+              ("rmi", "sync", 2, 1, 1, False),
+              ("rmi", "async", 2, 1, 1, False),
+              ("rmi", "sync", 4, 1, 1, False),
+              ("rmi", "async", 4, 1, 1, True),
+              ("pgm", "async", 4, 1, 1, False),
+              ("rmi", "async", 4, 4, 1, False),
+              ("rmi", "async", 4, 2, 2, False))
 AUTOTUNE_CELL = "wiki"
 #: the reference's mis-tuned BTree (every descent level scans 2,049 keys)
 AUTOTUNE_SPEC = {"sample": 1, "fanout": 2048}
@@ -518,11 +550,13 @@ def kernel_counters():
 
 def driven(fn):
     """Run ``fn`` with every launch count set to 0 just before it; return
-    its result and the counts read just after."""
+    its result and the counts read just after (each wrapper's counts by
+    card, ``by_device``, are zeroed with them)."""
     import torch
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+        c.by_device = {}
     out = fn()
     torch.cuda.synchronize()
     return out, {k: c.launches for k, c in counters.items()}
@@ -1226,7 +1260,8 @@ def first_after_publish(spans, batches):
 
 def phase_serve(dev, dataset, cell, log, totals, executor="sync",
                 prebuilt=None, shards=1, replicas=1, rebalance=None,
-                broadcast=None):
+                broadcast=None, devices=None, swap=None, index=None,
+                answers=None):
     """The lookup service on the cell's keys through its public entry
     points: the cell's index at the serving defaults on the cuda backend
     (health and trace on, default batch and deadline, flusher thread), 4
@@ -1259,7 +1294,15 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     (``swap_keys``) unless a prebuilt one is given.  Every
     dispatch must launch the kernel once per lane it touched (sync) or
     replay one graph per touched lane (async).  ``broadcast`` is the
-    same run's broadcast record of this executor, read beside it."""
+    same run's broadcast record of this executor, read beside it.
+
+    ``devices`` serves over that list of cards instead of ``dev`` alone:
+    a broadcast batch is one slice a card, each slice a lane (one launch
+    or replay); routed lanes go round robin over the cards.  ``swap``
+    overrides whether the run swaps (default: on SWAP_CELL), ``index``
+    the cell's serving index, and ``answers``, a dict, receives each
+    request's answer under ``(client, request)``.  The record splits the
+    launches and peak memory by card."""
     import dataclasses
     import gc
     import threading
@@ -1273,17 +1316,22 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
                                           RoutedGeneration, ShardTopology,
                                           default_spec)
 
+    from repro_torch.serve.lookup.dispatch import distinct
+
     keys, queries = cell["keys"], cell["queries"]
-    swap = dataset == SWAP_CELL
+    swap = dataset == SWAP_CELL if swap is None else swap
+    index = SERVE_INDEX[dataset] if index is None else index
     aio = executor == "async"
     routed = shards > 1
+    cards = distinct([torch.device(d) for d in devices or [dev]])
     if swap and "union" not in cell:
         delta = absent_delta(cell)
         cell["union"] = np.insert(keys, np.searchsorted(keys, delta), delta)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
     cfg = LookupServiceConfig(
-        spec=default_spec(SERVE_INDEX[dataset], backend="cuda"), trace=True,
+        spec=default_spec(index, backend="cuda"), trace=True,
         executor=executor, shards=shards, replicas=replicas,
         **(dict(slots=ASYNC_SLOTS, warm_scan_lengths=(SCAN_M,)) if aio
            else {}))
@@ -1294,8 +1342,11 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
             split_points=t.split_points, offsets=t.offsets,
             replicas=(replicas,) * t.n_shards, n_keys=t.n_keys))
     t0 = time.perf_counter()
-    svc = LookupService(keys, cfg, device=dev, prebuilt=first_gen)
-    torch.cuda.synchronize()
+    svc = LookupService(keys, cfg, prebuilt=first_gen,
+                        **({"devices": devices} if devices else
+                           {"device": dev}))
+    for d in cards:
+        torch.cuda.synchronize(d)
     setup_s = time.perf_counter() - t0
     gens = [svc.generation]
     v_first = svc.generation.version
@@ -1319,10 +1370,12 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     tally = {"bad": 0, "checked": 0, "after_swap": 0, "errors": []}
 
     def settle(item, scan):
-        q, v0, fut = item
+        q, v0, fut, at = item
         res = fut.result(timeout=900)
         v1 = svc.generation.version
         ok = serve_check(key_sets, q, res, v0, v1, scan)
+        if answers is not None:
+            answers[at] = res
         with lock:
             tally["checked"] += 1
             tally["bad"] += not ok
@@ -1343,7 +1396,7 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
                     v0 = svc.generation.version
                     q = rows[i]
                     pend.append((q, v0, svc.scan(q, SCAN_M) if scan
-                                 else svc.submit(q)))
+                                 else svc.submit(q), (c, i)))
                 for item in pend:
                     settle(item, scan)
         except Exception as e:  # noqa: BLE001 — reported and failed below
@@ -1418,6 +1471,9 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
         svc.stop()
 
     _, launched = driven(serve)
+    by_card = {str(d): {k: c.by_device.get(str(d), 0)
+                        for k, c in kernel_counters().items()}
+               for d in cards}
     check(not any(t.is_alive() for t in threads), f"{dataset} serve hung")
     snap = svc.metrics.snapshot()
     spans = svc.recorder.spans()
@@ -1468,8 +1524,10 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     lane_q = queries[:100_000]
     if routed:
         lane_q = lane_q[gen.topology.route(lane_q) == 0]
-    lane_q = lane_q[:svc.cfg.max_batch // shards]
-    q4 = encode_keys(lane_q, dev)
+    # a full batch's executable: a lane's share (routed) or one slice
+    lane_q = lane_q[:svc.cfg.max_batch // (
+        shards if routed else svc.dispatcher.n_shards)]
+    q4 = encode_keys(lane_q, lane_gen.device)
     per_batch = {"plain_ms": cuda_ms(lambda: lane_gen.fn(q4)),
                  "instrumented_ms": cuda_ms(
                      lambda: lane_gen.instrumented_fn()(q4, q4.shape[0])),
@@ -1477,7 +1535,7 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     if aio:
         exe = svc.exec_cache._exes[(
             (lane_gen.version, 0) if routed else (gen.version,), "read", 0,
-            q4.shape[0])]
+            q4.shape[0], lane_gen.device)]
         exe.static_input.copy_(q4)
         per_batch["instrumented_graph_ms"] = cuda_ms(
             lambda: exe(exe.static_input, q4.shape[0]))
@@ -1489,7 +1547,13 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     # a touched lane, whatever the batch's kind
     shard_rows = svc.metrics.per_shard() if routed else []
     touched = (sum(r["batches"] for r in shard_rows) if routed
-               else snap["batches"])
+               else snap["batches"] * svc.dispatcher.n_shards)
+    if aio:         # each card's graph replays, and its captures
+        for d, per in svc.exec_cache.graph_launches_by_device().items():
+            for k, v in per.items():
+                by_card[d][k] += v
+    check(all(by_card[str(d)][kernel] > 0 for d in cards),
+          f"{dataset}: a card launched no {kernel}: {by_card}")
     rec = {
         "phase": ("routed" if routed else "serve")
         + ("_async" if aio else ""), "dataset": dataset,
@@ -1533,7 +1597,13 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
         "trace_spans": len(svc.recorder),
         "trace_dropped": svc.recorder.n_dropped,
         "staging_allocs": svc.dispatcher.staging_allocs,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(cards[0]),
+        "devices": [str(d) for d in svc.devices],
+        "cards": len(cards),
+        "slices_per_batch": (1 if routed else svc.dispatcher.n_shards),
+        "launches_by_card": by_card,
+        "peak_device_bytes_by_card": {
+            str(d): torch.cuda.max_memory_allocated(d) for d in cards},
     }
     if routed:
         launch_spans = [s for s in spans if s.name == ("launch" if aio
@@ -1673,6 +1743,195 @@ def phase_routed(dev, dataset, cell, log, totals, broadcast):
     gc.collect()
     torch.cuda.empty_cache()
     return recs
+
+
+def _health_fields(rec) -> dict:
+    """The lifetime totals of one generation's health record."""
+    return {"n": rec.n, "disp_sum": rec.disp_sum, "disp_max": rec.disp_max,
+            "width_sum": rec.width_sum, "steps_sum": rec.steps_sum,
+            "disp_hist": rec.disp_hist.tolist(),
+            "traffic_total": rec.traffic_total.tolist()}
+
+
+def phase_two_lanes(dev, cell, gen, log, totals):
+    """The split and the reassembly of a broadcast over several devices,
+    on the one card: ``gen`` (amzn's RMI 4096 of the `serve` phase)
+    served by the async executor over ``[dev, dev]``, every batch two
+    slices on the card, beside a one-card service, both over the same
+    TWO_LANE_REQUESTS requests of SERVE_KEYS keys, each submitted whole
+    before any answer is read.  Every answer must be `np.searchsorted`'s,
+    the two runs' answers and health records equal, and the two-lane run
+    must replay two graphs a batch."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.lookup import LookupService, LookupServiceConfig
+
+    n = TWO_LANE_REQUESTS * SERVE_KEYS
+    q = cell["queries"][:n].reshape(TWO_LANE_REQUESTS, SERVE_KEYS)
+    lb = cell["lb"][:n].reshape(TWO_LANE_REQUESTS, SERVE_KEYS)
+    runs, got = {}, {}
+    for lanes in (1, 2):
+        svc = LookupService(cell["keys"], LookupServiceConfig(
+            spec=gen.spec, executor="async", slots=ASYNC_SLOTS),
+            devices=[dev] * lanes, prebuilt=gen)
+
+        def serve():
+            with svc:
+                t0 = time.perf_counter()
+                futs = [svc.submit(r) for r in q]
+                out = [f.result(timeout=300) for f in futs]
+                return out, time.perf_counter() - t0
+
+        (got[lanes], wall), launched = driven(serve)
+        graphs = svc.exec_cache.graph_stats()
+        snap = svc.metrics.snapshot()
+        runs[lanes] = {
+            "devices": [str(d) for d in svc.devices],
+            "slices_per_batch": svc.dispatcher.n_shards, "wall_s": wall,
+            "requests_per_s": TWO_LANE_REQUESTS / wall,
+            "batches": snap["batches"], "graphs": graphs,
+            "wrong": int(sum(not np.array_equal(a, b)
+                             for a, b in zip(got[lanes], lb))),
+            "health": _health_fields(svc.health.get(gen.version))}
+        check(graphs["graph_replays"] == lanes * snap["batches"],
+              f"two_lanes x{lanes}: {graphs['graph_replays']} replays for "
+              f"{snap['batches']} batches")
+        for k, v in launched.items():
+            totals[k] += v + graphs["kernel_launches"].get(k, 0)
+        del svc
+        torch.cuda.empty_cache()
+    rec = {"phase": "two_lanes", "dataset": "amzn", "n": len(cell["keys"]),
+           "requests": TWO_LANE_REQUESTS, "keys_per_request": SERVE_KEYS,
+           "runs": runs,
+           "identical": all(np.array_equal(a, b)
+                            for a, b in zip(got[1], got[2])),
+           "health_equal": runs[1]["health"] == runs[2]["health"]}
+    emit(rec, log)
+    check(runs[1]["wrong"] == 0 and runs[2]["wrong"] == 0,
+          f"two_lanes: wrong answers {runs[1]['wrong']}, {runs[2]['wrong']}")
+    check(rec["identical"], "two_lanes: the split's answers differ")
+    check(rec["health_equal"] and runs[1]["health"]["n"] == n,
+          f"two_lanes: health records differ {runs}")
+    return rec
+
+
+def _same(a, b) -> bool:
+    """Two answers (positions, or a scan's positions and window) equal."""
+    import numpy as np
+    if isinstance(a, tuple):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(a, b)
+
+
+def phase_cards(args, log):
+    """``--only cards``: the lookup service over CARDS cards on the
+    CARDS_CELL cell (the published 200M keys, ``--seed``), `serve`'s
+    traffic through `phase_serve` for each of CARDS_RUNS: the RMI 4096
+    broadcast (the fused ``rmi_lookup`` on every card) sync and async at
+    1, 2 and 4 cards, with one hot swap in the 4-card async run; PGM eps
+    64 async at 4 cards (B1 on every card); routed async at 4 x 1 and 2 x
+    2 over the 4 cards.  The RMI generations (the keys, and the keys and
+    the swap's delta) are built once on the first card and placed on
+    every card; first each card's replica answers BATCH queries against
+    the first card's, bit for bit.  Every answer of every run must be
+    `np.searchsorted`'s on a generation current between its submit and
+    result, and the 1-card sync run's where it was served from the same
+    keys; every card a run serves from must launch the path's kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import spec as spec_mod
+    from repro_torch.kernels.common import encode_keys
+    from repro_torch.serve.lookup import IndexRegistry, default_spec
+
+    count = torch.cuda.device_count()
+    check(count >= CARDS, f"--only cards needs {CARDS} cards, {count} "
+          f"visible")
+    devs = [torch.device("cuda", i) for i in range(CARDS)]
+    cell = make_cell(devs[0], CARDS_CELL, args)
+    keys = cell["keys"]
+    delta = absent_delta(cell)
+    cell["union"] = np.insert(keys, np.searchsorted(keys, delta), delta)
+    sp = default_spec("rmi", backend="cuda")
+    t0 = time.perf_counter()
+    reg = IndexRegistry(devices=devs)
+    g0 = reg.build_and_publish(sp, keys)
+    g1 = reg.make_generation(
+        spec_mod.build(sp, cell["union"], device=devs[0]),
+        encode_keys(cell["union"], devs[0]), backend="cuda", spec=sp)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    build_s = time.perf_counter() - t0
+    q = cell["queries"][:BATCH]
+    want = g0.fn(encode_keys(q, devs[0])).cpu()
+    replicas = {}
+    for d in devs:
+        r = g0.on(d)
+        got = r.fn(encode_keys(q, d)).cpu()
+        replicas[str(d)] = {
+            "data_device": str(r.data.device), "version": r.version,
+            "bytes": r.data.numel() * r.data.element_size(),
+            "equal_to_card0": bool(torch.equal(got, want))}
+    emit({"phase": "cards_replicas", "dataset": CARDS_CELL, "n": len(keys),
+          "build_and_place_s": build_s, "queries": BATCH,
+          "replicas": replicas}, log)
+    check(all(r["equal_to_card0"] and r["data_device"] == d
+              for d, r in replicas.items()),
+          f"cards: a replica differs from card 0's: {replicas}")
+    check(torch.equal(want, torch.from_numpy(cell["lb"][:BATCH])),
+          "cards: card 0's answers are not np.searchsorted's")
+    del reg
+    totals = {k: 0 for k in kernel_counters()}
+    n_read = SERVE_CLIENTS * SERVE_READS * SERVE_KEYS
+    reads = cell["queries"][:n_read].reshape(SERVE_CLIENTS, SERVE_READS,
+                                             SERVE_KEYS)
+    scans = cell["queries"][n_read:n_read + SERVE_SCANS * SERVE_KEYS]
+    scans = scans.reshape(SERVE_SCANS, SERVE_KEYS)
+    one, rows = None, []
+    for index, executor, n_cards, shards, replicas_, swap in CARDS_RUNS:
+        answers = {}
+        rec, _ = phase_serve(
+            devs[0], CARDS_CELL, cell, log, totals, executor=executor,
+            prebuilt=(None if index != "rmi" or shards > 1
+                      else [g0, g1] if swap else [g0]),
+            shards=shards, replicas=replicas_, devices=devs[:n_cards],
+            swap=swap, index=index, answers=answers)
+        if one is None:
+            one = answers
+        same = 0
+        for (c, i), res in answers.items():
+            if _same(res, one[(c, i)]):
+                same += 1
+            else:       # served from the swapped generation
+                qq = scans[i] if c is None else reads[c][i]
+                check(swap and serve_check({0: cell["union"]}, qq, res, 0,
+                                           0, c is None),
+                      f"cards {index} {executor} x{n_cards}: request "
+                      f"{(c, i)} differs from the 1-card run's")
+        halves = rec["host_halves_ms"]
+        launch = halves.get("launch") or halves.get("pad_place")
+        rows.append({
+            "index": index, "executor": executor, "cards": n_cards,
+            "shards": shards, "replicas": replicas_, "swap": swap,
+            "requests_per_s": rec["requests_per_s"],
+            "requests_per_s_outside_hold":
+                rec["requests_per_s_outside_hold"],
+            "p50_request_ms": rec["p50_request_ms"],
+            "p99_request_ms": rec["p99_request_ms"],
+            "launch_host_ms": launch,
+            "launch_cpu_ms": halves.get("launch_cpu"),
+            "batches": rec["batches"], "wrong": rec["wrong"],
+            "identical_to_1card": same, "requests": len(answers),
+            "launches_by_card": rec["launches_by_card"],
+            "peak_device_bytes_by_card": rec["peak_device_bytes_by_card"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = {"phase": "cards_summary", "dataset": CARDS_CELL,
+               "n": len(keys), "launches": totals, "runs": rows}
+    emit(summary, log)
+    return {"replicas": replicas, "build_and_place_s": build_s,
+            "runs": rows, "launches": totals}
 
 
 def phase_autotune(dev, cell, args, log, totals):
@@ -3180,9 +3439,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
-    ap.add_argument("--only", choices=("dist",), default=None,
+    ap.add_argument("--only", choices=("dist", "cards"), default=None,
                     help="dist: the device, build and dist phases alone, "
-                         "at a world of every card")
+                         "at a world of every card; cards: the device, "
+                         "build and cards phases alone (lookup serving "
+                         "over 1, 2 and 4 cards)")
     ap.add_argument("--collectives-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
@@ -3202,7 +3463,8 @@ def main(argv=None) -> int:
         print(json.dumps(collectives_rank(args.collectives_rank, args.world,
                                           args.url, args.seed)))
         return 0
-    dev = torch.device("cuda")
+    # one card's readings on any machine: the phases pin the first card
+    dev = torch.device("cuda", 0)
     world = torch.cuda.device_count()
     log: list = []
     t_start = time.perf_counter()
@@ -3212,6 +3474,16 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__}, log)
     build_s = phase_build(log)
+    if args.only == "cards":
+        cards = phase_cards(args, log)
+        _write(args.out, {"card": smi, "only": "cards", "cards": cards,
+                          "total_s": time.perf_counter() - t_start,
+                          "log": log})
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.only == "dist":
         dist_out = {"dist_train": phase_dist_train(log, world, args.seed),
                     "dist_collectives": phase_dist_collectives(log, world,
@@ -3248,6 +3520,8 @@ def main(argv=None) -> int:
         serve, gens = phase_serve(dev, ds, cell, log, totals)
         serve_async, _ = phase_serve(dev, ds, cell, log, totals,
                                      executor="async", prebuilt=gens)
+        if ds == SWAP_CELL:
+            two_lanes = phase_two_lanes(dev, cell, gens[0], log, totals)
         del gens
         gc.collect()
         torch.cuda.empty_cache()
@@ -3258,6 +3532,8 @@ def main(argv=None) -> int:
                      **({"timings_tune_keys": tune_keys_row}
                         if ds == TUNE_CELL else {}),
                      "serve": serve, "serve_async": serve_async,
+                     **({"two_lanes": two_lanes} if ds == SWAP_CELL
+                        else {}),
                      "routed": routed}
         if ds == MUTABLE_CELL:
             cells[ds]["mutable"] = phase_mutable(dev, cell, args, log,

@@ -403,9 +403,11 @@ class ShadowRetuner:
             shard_gens, n_div = [], 0
             for s, (b, sp, sl) in enumerate(
                     zip(cand_builds, cand_specs, slices)):
+                # built and verified on the retuner's device; the
+                # publish places it on the shard's replica group
                 sg = svc.registry.make_generation(
-                    b, gen.shards[s].data, last_mile=sp.last_mile,
-                    backend=sp.backend, spec=sp, shard=s)
+                    b, gen.shards[s].data.to(dev), last_mile=sp.last_mile,
+                    backend=sp.backend, spec=sp, shard=s, devices=(dev,))
                 ok, div = self._verify_fn(sg.fn, sl, self._shard_queries(
                     q, sl))
                 n_div += div

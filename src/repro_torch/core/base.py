@@ -61,6 +61,23 @@ def _tensors(x):
             yield from _tensors(v)
 
 
+def to_device(x, device):
+    """A copy of a state on ``device``: every tensor of ``x`` (a tensor,
+    or dicts, lists, tuples and dataclasses of them) copied there, and
+    anything else kept as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, device) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Registry: name -> build function
 # ---------------------------------------------------------------------------

@@ -448,6 +448,25 @@ class LookupPlan:
         self._cache[key] = val
         return val
 
+    def to(self, device) -> "LookupPlan":
+        """This plan placed on ``device``: its verified bounds state and
+        keys copied there, with the state a fused executor derived from
+        them (RMI's f32 tables, verified once, through the kernel's own
+        arithmetic, where the plan was lowered).  The copy makes its own
+        callables; nothing it runs reads another device.  Itself when it
+        already lies there."""
+        if self.data.device == torch.device(device):
+            return self
+        derived = {k: base.to_device(v, device)
+                   for k, v in self._cache.items() if isinstance(k, str)}
+        return dataclasses.replace(
+            self,
+            bounds=dataclasses.replace(
+                self.bounds,
+                state=base.to_device(self.bounds.state, device)),
+            data=self.data.to(device), meta=dict(self.meta),
+            _cache=derived)
+
     def scan(self, q, m: int, backend: str = "torch"):
         """Materialize ``m`` records from ``LB(q)``."""
         return self.compile_scan(m, backend)(q)

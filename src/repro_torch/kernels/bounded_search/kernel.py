@@ -1,7 +1,8 @@
 """ctypes binding of ``csrc/bounded_search.cu`` (the last-mile kernel).
 
 `launch` is the only place the kernel starts, and counts its launches in
-``launch.launches``.  It checks what the kernel takes and raises on
+``launch.launches``, and by card in ``launch.by_device`` (device name ->
+launches).  It checks what the kernel takes and raises on
 anything else; choosing between the kernel and its plain version is
 `ops.lower_bound_windows`'s job.
 """
@@ -64,7 +65,10 @@ def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bounded_search launch failed: CUDA error {rc}")
     launch.launches += 1
+    by = launch.by_device
+    by[str(data.device)] = by.get(str(data.device), 0) + 1
     return out
 
 
 launch.launches = 0
+launch.by_device = {}

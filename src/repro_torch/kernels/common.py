@@ -23,15 +23,24 @@ _TWO32 = 4294967296.0
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; without one, raise rather than carry
-    on silently on the CPU (pass ``device="cpu"`` to ask for it)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the current CUDA card; without one, raise rather
+    than carry on silently on the CPU (pass ``device="cpu"`` to ask for
+    it).  A CUDA device comes back indexed (``cuda`` -> ``cuda:<current>``,
+    since ``torch.device("cuda") != torch.device("cuda", 0)``), so
+    whatever is keyed on a device sees one name for each card; a card
+    that is not there raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"no CUDA device cuda:{index}: "
+                           f"{torch.cuda.device_count()} visible")
+    return torch.device("cuda", index)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 whole lookup fused into one launch).
 
 `launch_bounds` and `launch_lookup` are the only places the two entries
-start, and each counts its launches in its own ``.launches``.  They check
+start, and each counts its launches in its own ``.launches``, and by card
+in its ``.by_device`` (device name -> launches).  They check
 what the kernel takes and raise on anything else; choosing between a
 kernel and its plain version is `ops`'s job.
 
@@ -79,6 +80,8 @@ def launch_bounds(state, queries: torch.Tensor):
     if rc != 0:
         raise RuntimeError(f"rmi_bounds launch failed: CUDA error {rc}")
     launch_bounds.launches += 1
+    by = launch_bounds.by_device
+    by[str(dev)] = by.get(str(dev), 0) + 1
     return lo, hi
 
 
@@ -114,9 +117,13 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
     if rc != 0:
         raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
     launch_lookup.launches += 1
+    by = launch_lookup.by_device
+    by[str(dev)] = by.get(str(dev), 0) + 1
     return out
 
 
 launch_bounds.launches = 0
 launch_lookup.launches = 0
+launch_bounds.by_device = {}
+launch_lookup.by_device = {}
 launch_lookup.timed = None

@@ -1,5 +1,5 @@
-"""Serve driver: token generation and learned-index lookup serving on one
-device.
+"""Serve driver: token generation on one device, and learned-index lookup
+serving over every visible card.
 
 Token mode, the default as in the reference (the paged-KV continuous
 batching engine, greedy decoding, weights drawn from a seed):
@@ -18,8 +18,11 @@ Lookup mode:
         --dataset amzn --requests 200 --keys-per-request 64
 
 Routes through `repro_torch.serve.lookup`: admission, micro-batching and
-plan-compiled dispatch on the CUDA card (``--device cpu`` asks for the
-CPU, where the kernels' plain versions run).  ``--spec`` takes one
+plan-compiled dispatch over every visible CUDA card, as the reference's
+driver serves over every local device (each batch split into one slice a
+card, each card holding a replica of the index); ``--device cuda:N`` pins
+one card, and ``--device cpu`` asks for the CPU, where the kernels' plain
+versions run.  ``--spec`` takes one
 `IndexSpec` as JSON, which is how the backend is chosen:
 
     --spec '{"index": "rmi", "hyper": {"branching": 4096}, "backend": "cuda"}'
@@ -28,7 +31,8 @@ CPU, where the kernels' plain versions run).  ``--spec`` takes one
 the reference: CUDA graphs of the plan's callables in an executable
 cache, a slot ring of in-flight batches) or ``sync`` (the serial loop).
 ``--shards N`` range-routes the key space over N per-shard indexes
-(scatter/gather dispatch; on one card every lane runs on it) and
+(scatter/gather dispatch; each (shard, replica) lane on its own card,
+round robin, and on one card every lane runs on it) and
 ``--replicas R`` gives each shard R read lanes.  ``--autotune-daemon``
 starts the shadow retuner beside the service and ``--autotune-store
 DIR`` persists its tuned specs.
@@ -90,6 +94,7 @@ def run_lookup(args) -> None:
     from repro_torch.obs.export import JsonlMetricsLogger, MetricsServer
     from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
                                           default_spec)
+    from repro_torch.serve.lookup.dispatch import distinct
 
     keys = sosd.generate(args.dataset, args.n_keys, seed=1)
     # --spec takes one declarative IndexSpec (JSON) over the index name
@@ -107,8 +112,10 @@ def run_lookup(args) -> None:
         shards=args.shards, replicas=args.replicas,
         trace=bool(args.trace_out), slo_p99_ms=args.slo_p99_ms,
         health=not args.no_health, autotune=at_cfg), device=args.device)
+    n_dev = len(distinct(svc.devices))
     print(f"serving spec: {svc.generation.spec.to_json()} "
-          f"(executor={args.executor}, device={svc.dispatcher.device}, "
+          f"(executor={args.executor}, "
+          f"device={','.join(str(d) for d in svc.devices)}, "
           f"built in {time.time() - t0:.2f}s)")
     topo = getattr(svc.generation, "topology", None)
     if topo is not None:
@@ -144,7 +151,7 @@ def run_lookup(args) -> None:
     exact = bool(np.array_equal(got, base.lower_bound_oracle(keys, q)))
     snap = svc.metrics.snapshot()
     print(f"{len(q)} lookups / {args.requests} requests in {dt:.2f}s over "
-          f"{svc.dispatcher.n_shards} shard(s): "
+          f"{svc.dispatcher.n_shards} shard(s) on {n_dev} device(s): "
           f"{args.requests / dt:.1f} requests/s, "
           f"{snap['lookups_per_s']/1e3:.1f} klookups/s, "
           f"{snap['batches']} batches, "
@@ -244,8 +251,10 @@ def main(argv=None) -> None:
                          "each shard's lookups round-robin over this many "
                          "replica lanes")
     ap.add_argument("--device", default=None,
-                    help="torch device to serve on (default: the CUDA "
-                         "card; 'cpu' runs the kernels' plain versions)")
+                    help="torch device to serve on (default: token mode "
+                         "the CUDA card, lookup mode every visible CUDA "
+                         "card; 'cuda:N' pins one, 'cpu' runs the "
+                         "kernels' plain versions)")
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="start the HTTP metrics endpoint on this port "
                          "(0 = ephemeral): /metrics Prometheus text, "

@@ -77,16 +77,21 @@ def dist_args(args, ap):
 
 
 def init_distributed(url: str, rank: int, world: int, device):
-    """Join the process group: NCCL on a CUDA device (this rank's card),
-    gloo on the CPU.  Returns the rank's device."""
+    """Join the process group: NCCL on a CUDA device (``None`` or an
+    unindexed ``cuda``: this rank's card, ``LOCAL_RANK`` or the rank
+    modulo the cards), gloo on the CPU.  Returns the rank's device."""
     import torch.distributed as dist
 
-    dev = torch.device(device)
+    from repro_torch.kernels.common import resolve_device
+
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if dev.index is None:
+            resolve_device(None)            # raises without a card
             local = os.environ.get("LOCAL_RANK")
             dev = torch.device("cuda", int(local) if local is not None
                                else rank % torch.cuda.device_count())
+        dev = resolve_device(dev)
         torch.cuda.set_device(dev)
         dist.init_process_group("nccl", init_method=url, rank=rank,
                                 world_size=world, device_id=dev)
@@ -142,14 +147,16 @@ def main(argv=None) -> None:
     if args.remat is not None:
         cfg = dataclasses.replace(cfg, remat=args.remat)
     dist_spec = dist_args(args, ap)
-    dev = resolve_device(args.device)
     rank, world = 0, 1
-    if dist_spec is not None:
+    if dist_spec is None:
+        dev = resolve_device(args.device)
+    else:
+        # the rank's card is chosen before any device is resolved
         url, rank, world = dist_spec
         if args.global_batch % (world * args.microbatches):
             ap.error(f"--global-batch {args.global_batch} does not split "
                      f"into {world} ranks x {args.microbatches} microbatches")
-        dev = init_distributed(url, rank, world, dev)
+        dev = init_distributed(url, rank, world, args.device)
     say = print if rank == 0 else (lambda *a, **k: None)
 
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=10, total=args.steps))

@@ -10,7 +10,9 @@ The device form holds the sorted keys encoded (`kernels.common` codec),
 padded to a power-of-two bucket with ``INT64_MAX``, the code of the
 reference's ``UINT64_MAX`` pad.  Lower-bound semantics make that pad
 exact: ``LB_delta(q)`` counts delta keys ``< q``, and no query is ever
-above ``INT64_MAX``, so pad lanes are never counted.  A *real* key
+above ``INT64_MAX``, so pad lanes are never counted.  A service over
+several cards reads the copy on each card (`DeltaBuffer.on`), made from
+the first at first use and kept with the snapshot.  A *real* key
 ``2^64 - 1`` encodes to the sentinel itself and is still counted
 correctly for the same reason; it lives in ``keys_np`` and survives
 compaction like any other key.  Pow-2 padding bounds the distinct delta
@@ -19,7 +21,7 @@ shapes at O(log max_delta), mirroring the dispatcher's query buckets.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -56,10 +58,24 @@ class DeltaBuffer:
     keys_np: np.ndarray        # sorted unique uint64, disjoint from base
     device: torch.Tensor       # encoded int64, pow2-padded with INT64_MAX
     pad_quantum: int = PAD_QUANTUM
+    #: device -> the padded copy there (`on`)
+    _copies: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def count(self) -> int:
         return int(self.keys_np.size)
+
+    def on(self, device) -> torch.Tensor:
+        """The padded device copy on ``device``: ``device`` itself where
+        it lies, else a copy of it made there at first use and kept."""
+        device = torch.device(device)
+        if device == self.device.device:
+            return self.device
+        t = self._copies.get(device)
+        if t is None:
+            t = self._copies[device] = self.device.to(device)
+        return t
 
     @staticmethod
     def _to_device(keys_np: np.ndarray, quantum: int, device):

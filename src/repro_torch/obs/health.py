@@ -39,7 +39,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 __all__ = ["GenerationHealth", "HEALTH_DISP_BUCKETS", "HEALTH_STATS_SIZE",
-           "HEALTH_TRAFFIC_BUCKETS", "HealthMonitor", "unpack_stats"]
+           "HEALTH_TRAFFIC_BUCKETS", "HealthMonitor", "fold_stats",
+           "unpack_stats"]
 
 #: Log2 displacement buckets: bucket 0 holds |pred-found| == 0, bucket j
 #: holds [2^(j-1), 2^j), the last bucket overflows.  24 buckets cover
@@ -69,6 +70,17 @@ def unpack_stats(vec) -> Dict:
             "disp_max": int(vec[2]), "width_sum": int(vec[3]),
             "steps_sum": int(vec[4]), "disp_hist": vec[5:d1],
             "traffic_hist": vec[d1:]}
+
+
+def fold_stats(vecs) -> np.ndarray:
+    """The packed stats vectors of one batch's slices (a broadcast over
+    several cards) folded into the vector one device returns for the
+    whole batch: counts, sums and histograms add, ``disp_max`` takes the
+    max.  The batch's record is then the one-device record exactly."""
+    vecs = [np.asarray(v, dtype=np.int64) for v in vecs]
+    out = np.sum(vecs, axis=0, dtype=np.int64)
+    out[2] = max(int(v[2]) for v in vecs)
+    return out
 
 
 def disp_bucket_edge(j: int) -> int:

@@ -54,8 +54,6 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  max_seq: int = 512, page_size: int = 16, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
         where = {p.device for p in params.parameters()}
         if where != {self.device}:
             raise ValueError(f"params lie on {sorted(map(str, where))}, "

@@ -1,55 +1,68 @@
-"""Dispatch: one plan-compiled lookup over a padded query batch.
+"""Dispatch: one plan-compiled lookup over a padded query batch, split
+over the devices of the data axis.
 
-A batch of uint64 request keys is padded to a power-of-two bucket,
-encoded (`kernels.common` codec) into a pinned host staging buffer of
-that bucket, copied to the device without blocking, and run through a
-`repro_torch.core.plan.LookupPlan` callable: pass a plan and the
-dispatcher compiles (and caches) the lookup for the requested backend,
-or pass any lookup callable (a scan or instrumented lookup) directly.
-The bucket bounds the distinct batch shapes at log2(max batch).  Pad
-lanes repeat the first real key and are sliced off at completion.
+A batch of uint64 request keys is padded to a power-of-two bucket, then
+up to a multiple of the device count, encoded (`kernels.common` codec)
+into a pinned host staging buffer of that bucket, and split into one
+contiguous equal slice a device.  Slice k is copied to device k without
+blocking and run through a `repro_torch.core.plan.LookupPlan` callable
+over device k's replica of the generation: pass a plan and the
+dispatcher compiles (and caches) the lookup for the requested backend on
+each device's copy, or pass the lookup callables (a scan or instrumented
+lookup), one a slice.  At completion the slices come back in order and
+the pad lanes are sliced off.  The bucket bounds the distinct batch
+shapes at log2(max batch).  Pad lanes repeat the first real key; an
+instrumented read passes each slice its own count of real keys, so its
+pad lanes stay masked, and folds the slices' stats vectors into the one
+vector a single device returns (`obs.health.fold_stats`).
 
-This is the reference's `repro.serve.lookup.dispatch.ShardedDispatcher`
-on ONE device: ``n_shards`` is 1 and there is no mesh.  Range-routed
-dispatch (`RoutedDispatcher`) runs one such dispatcher per (shard,
-replica) lane; on one card every lane shares it, each with its own
-staging buffers and copy events.
+This is the reference's `repro.serve.lookup.dispatch.ShardedDispatcher`:
+its 1-D ``data`` mesh is the list of devices (`data_axis_devices`, every
+visible card), ``n_shards`` the list's length, and the answers are the
+one device's bit for bit, since every lane is an independent search over
+the same keys.  Devices may repeat: slices on one device share its
+replica.  Range-routed dispatch (`RoutedDispatcher`) runs one
+single-device dispatcher per (shard, replica) lane, on the lane's device.
 
-Staging reuse: the host-to-device copy of a pinned buffer is
+Staging reuse: the host-to-device copies of a pinned buffer are
 asynchronous, and the next batch of the same bucket pads into the same
-buffer.  Returning while the copy is in flight would let that pad
+buffer.  Returning while a copy is in flight would let that pad
 overwrite this batch's queries (the race the reference fixed by
 blocking on its placement).  So a CUDA event is recorded after each
-copy, and the next write into that bucket's buffer waits on it.  On the
-CPU the placement is a copy, so the staging buffer never aliases a
-batch either.
+slice's copy, one per (device, bucket), and the next write into that
+bucket's buffer waits on them.  On the CPU the placement is a copy, so
+the staging buffer never aliases a batch either.
 
-Two faces.  The synchronous `__call__` launches and then `finalize`s
-(reads the results back with ``.cpu()``, which waits for the stream).
-The async executor uses the split halves instead: `launch` stages the
-batch, copies it to the device (straight into a captured graph's static
-input when the executable has one), runs the executable, and enqueues a
-``non_blocking`` copy of every output into pinned host buffers that
-belong to the launching slot, followed by an event, all on the
-executor's stream; `complete` waits on that one event and copies the
-outputs out of the slot's buffers (a result outlives the slot, whose
-buffers a later launch reuses).  Waiting on
-the launch's own event (never ``.cpu()``) leaves the batches launched
-after it running, and copying the outputs right after the replay, in
-stream order, keeps them safe from the next replay of the same graph,
-which rewrites its static outputs.
+Two faces.  The synchronous `__call__` launches every slice and then
+`complete`s (reads the results back with ``.cpu()``, which waits for each
+device).  The async executor uses the split halves instead: `launch`
+stages the batch and, for each slice on its device's stream (the
+executor's own for that card), copies the slice to the device (straight
+into a captured graph's static input when the executable has one), runs
+the slice's executable, and enqueues a ``non_blocking`` copy of every
+output into a pinned host set of the slice's own, followed by an event;
+`complete` waits on those events and copies the outputs out of the host
+sets (a result outlives the slot, whose buffers a later launch reuses).
+Waiting on the launch's own events (never ``.cpu()``) leaves the batches
+launched after it running, and copying the outputs right after the
+replay, in stream order, keeps them safe from the next replay of the
+same graph, which rewrites its static outputs.  A slice that fails to
+launch fails the batch: the slices already launched are waited for, and
+no other device answers in its stead.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.kernels.common import SIGN_BIT, decode_keys, resolve_device
+from repro_torch.obs.health import fold_stats
 from repro_torch.obs.trace import maybe_span
 from repro_torch.serve.lookup.topology import shard_replica_groups
 
@@ -63,6 +76,50 @@ def make_plan(build, data, last_mile=None):
     ``data``.  ``last_mile`` defaults to the hyperparameter the index was
     built with, falling back to binary."""
     return plan_mod.lower(build, data, last_mile=last_mile)
+
+
+def data_axis_devices() -> List[torch.device]:
+    """Every visible CUDA card, in index order: the port's counterpart of
+    the reference's `data_axis_mesh` (a 1-D ``data`` mesh over
+    ``jax.devices()``).  Without a card it raises, as `resolve_device`
+    does: nothing carries on on the CPU unless asked."""
+    resolve_device(None)
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def serving_devices(device=None, devices=None) -> List[torch.device]:
+    """The devices one service serves on: ``device`` pins one,
+    ``devices`` lists them (a device may repeat), and neither means every
+    visible card (`data_axis_devices`), as the reference's services
+    default to every local device.  Each comes back normalized
+    (`resolve_device`); a card that is not there raises."""
+    if device is not None and devices is not None:
+        raise ValueError("pass device or devices, not both")
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        return devs
+    if device is not None:
+        return [resolve_device(device)]
+    return data_axis_devices()
+
+
+def distinct(devices) -> List[torch.device]:
+    """``devices`` without repeats, in first-seen order."""
+    out: List[torch.device] = []
+    for d in devices:
+        if d not in out:
+            out.append(d)
+    return out
+
+
+def device_guard(device):
+    """``torch.cuda.device(device)`` for a CUDA device (its kernels and
+    streams are the current ones inside), nothing for another."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _host_copy(out, host: Dict, key=()):
@@ -89,144 +146,204 @@ def _own(out):
     return out.clone()
 
 
+def _to_host(out):
+    """``out`` read back to the host (waits for its device)."""
+    if isinstance(out, tuple):
+        return tuple(_to_host(o) for o in out)
+    return out.cpu()
+
+
+def _join(parts, instrumented: bool):
+    """One batch's output from its slices' host outputs, in slice order:
+    positions and windows concatenated, an instrumented read's stats
+    vectors folded (`fold_stats`)."""
+    if instrumented:
+        payload = _join([p[0] for p in parts], False)
+        return payload, torch.from_numpy(
+            fold_stats([p[1].numpy() for p in parts]))
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(col) for col in zip(*parts))
+    return torch.cat(parts)
+
+
 @dataclasses.dataclass
 class Launched:
-    """One batch launched by `ShardedDispatcher.launch`: its outputs (host
-    copies in flight on a CUDA device, the outputs themselves on the CPU)
-    and the event recorded after the copies."""
+    """One batch launched by `ShardedDispatcher.launch`: each slice's
+    outputs (host copies in flight on a CUDA device, the outputs
+    themselves on the CPU) and the events recorded after the copies."""
 
-    out: Any
+    parts: List[Any]
     m: int
     instrumented: bool = False
-    done: Optional[Any] = None     # torch.cuda.Event, None on the CPU
+    done: List[Any] = dataclasses.field(default_factory=list)
 
 
 class ShardedDispatcher:
-    """Pads, stages, places and runs query batches on one device."""
+    """Pads, stages, splits and runs query batches over the data axis."""
 
     def __init__(self, device=None, pad_quantum: int = PAD_QUANTUM,
-                 recorder=None):
-        self.device = resolve_device(device)
+                 recorder=None, devices=None):
+        #: the data axis: slice k of a batch runs on ``devices[k]``
+        self.devices = tuple(serving_devices(device, devices))
+        #: the first device (where the builds run)
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
         self.pad_quantum = int(pad_quantum)
-        self.n_shards = 1
         #: optional `repro_torch.obs.trace.SpanRecorder`: the dispatch
         #: path splits into a pad+place span (host-side data movement)
         #: and a device span (launch + wait), so a slow batch names which
         #: half it spent its time in.
         self.recorder = recorder
-        # one staging buffer per pow2 bucket (pinned on a CUDA device),
-        # and the event recorded after the last copy out of it
+        # one staging buffer per bucket (pinned on a CUDA device), and
+        # the events recorded after the copies out of it, one a slice
         self._staging: Dict[int, torch.Tensor] = {}
-        self._copied: Dict[int, torch.cuda.Event] = {}
+        self._copied: Dict[int, List[torch.cuda.Event]] = {}
         self.staging_hits = 0
         self.staging_allocs = 0
 
     def padded_size(self, m: int) -> int:
-        """The smallest ``pad_quantum * 2^k`` that holds ``m`` keys."""
+        """The smallest ``pad_quantum * 2^k`` that holds ``m`` keys, then
+        up to a multiple of the device count (the reference's)."""
         p = self.pad_quantum
         while p < m:
             p <<= 1
-        return p
+        r = p % self.n_shards
+        return p + (self.n_shards - r if r else 0)
+
+    def slice_valid(self, m: int, p: int) -> List[int]:
+        """The real keys in each slice of an ``m``-key batch padded to
+        ``p``: ``clamp(m - k*p/n, 0, p/n)``."""
+        s = p // self.n_shards
+        return [min(max(m - k * s, 0), s) for k in range(self.n_shards)]
 
     def _stage(self, keys: np.ndarray):
-        """Pad ``keys`` to their pow2 bucket and encode them into the
-        bucket's staging buffer; returns ``(buffer, padded size)``."""
+        """Pad ``keys`` to their bucket and encode them into the bucket's
+        staging buffer; returns ``(buffer, padded size)``."""
         m = keys.size
         p = self.padded_size(m)
         buf = self._staging.get(p)
         if buf is None:
-            buf = torch.empty(p, dtype=torch.int64,
-                              pin_memory=self.device.type == "cuda")
+            buf = torch.empty(p, dtype=torch.int64, pin_memory=any(
+                d.type == "cuda" for d in self.devices))
             self._staging[p] = buf
             self.staging_allocs += 1
         else:
             self.staging_hits += 1
             copied = self._copied.get(p)
-            if copied is not None:
-                # the last copy out of buf is done
+            if copied:
+                # the last copies out of buf are done
                 with maybe_span(self.recorder, "stage_wait", cat="serve",
                                 padded=int(p)):
-                    copied.synchronize()
+                    for ev in copied:
+                        ev.synchronize()
+        self._copied[p] = []
         host = buf.numpy().view(np.uint64)
         np.bitwise_xor(keys, np.uint64(SIGN_BIT), out=host[:m])
         host[m:] = host[0]       # any valid key: lanes are independent
         return buf, p
 
-    def _copy_out(self, buf, p: int, dst=None):
-        """Copy staging buffer ``buf`` to the device (into ``dst`` when
-        given) on the current stream and record the event the buffer's
-        next write waits on; returns the device batch."""
+    def _place(self, buf, p: int, k: int, dst=None):
+        """Slice ``k`` of staging buffer ``buf`` on its device (into
+        ``dst`` when given).  On a CUDA device the copy goes on the
+        current stream and records the event the buffer's next write
+        waits on."""
+        s = p // self.n_shards
+        src, dev = buf[k * s:(k + 1) * s], self.devices[k]
+        if dev.type != "cuda":
+            return src.clone()
         if dst is None:
-            dst = buf.to(self.device, non_blocking=True)
+            dst = src.to(dev, non_blocking=True)
         else:
-            dst.copy_(buf, non_blocking=True)
+            dst.copy_(src, non_blocking=True)
         copied = torch.cuda.Event()
-        copied.record(torch.cuda.current_stream(self.device))
-        self._copied[p] = copied
+        copied.record(torch.cuda.current_stream(dev))
+        self._copied[p].append(copied)
         return dst
 
     def pad_and_place(self, keys: np.ndarray):
-        """Pad to the pow2 bucket, encode into the bucket's staging
-        buffer and place on the device; returns ``(device batch of
+        """Pad to the bucket, encode into the bucket's staging buffer and
+        place each slice on its device; returns ``(device slices of
         encoded keys, padded size)``."""
         buf, p = self._stage(np.asarray(keys, dtype=np.uint64))
-        if self.device.type != "cuda":
-            return buf.clone(), p
-        return self._copy_out(buf, p), p
+        return tuple(self._place(buf, p, k)
+                     for k in range(self.n_shards)), p
 
-    def launch(self, exe, keys: np.ndarray, args, host: Dict,
-               instrumented: bool = False, stream=None):
-        """The launch half of async dispatch: stage, place, run ``exe(q,
-        *args)`` and enqueue the copy of its outputs into the pinned
-        buffers of ``host`` (the launching slot's own set, made on first
-        use), all on ``stream`` (the executor's own; None: the current
-        stream), without waiting on the device.  An ``exe`` with a
-        ``static_input`` (a captured graph) gets the batch copied
-        straight into it.  ``instrumented`` says the outputs are
-        ``(payload, packed stats)``.  Returns a `Launched` for
-        `complete`.
+    def launch(self, exes: Sequence, keys: np.ndarray, binds: Sequence,
+               hosts: Sequence[Dict], instrumented: bool = False,
+               streams: Optional[Dict] = None) -> Launched:
+        """The launch half of async dispatch: stage the batch, then for
+        each slice k on its device, place it, run ``exes[k](q, [n_valid,]
+        *binds[k])`` and enqueue the copy of its outputs into the pinned
+        buffers of ``hosts[k]`` (a set of the slice's own, made on first
+        use), on ``streams[device]`` (the executor's stream for that
+        card; None or missing: the device's current stream), without
+        waiting on the device.  An executable with a ``static_input`` (a
+        captured graph) gets its slice copied straight into it.
+        ``instrumented`` says the outputs are ``(payload, packed
+        stats)``: each slice then gets its own count of real keys.
+        Returns a `Launched` for `complete`.
 
-        Device operands in ``args`` (a padded delta) were made on the
-        caller's stream: ``stream`` first waits for everything queued on
-        it, and each operand is marked as used on ``stream``, so the
-        caching allocator does not hand its memory out again before this
-        launch has read it."""
+        Device operands in ``binds`` (a padded delta) were made on the
+        caller's stream: the launch stream first waits for everything
+        queued on it, and each operand is marked as used on the launch
+        stream, so the caching allocator does not hand its memory out
+        again before this launch has read it."""
         keys = np.asarray(keys, dtype=np.uint64)
+        m = keys.size
         buf, p = self._stage(keys)
-        if self.device.type != "cuda":
-            return Launched(out=exe(buf.clone(), *args), m=keys.size,
-                            instrumented=instrumented)
-        producer = torch.cuda.current_stream(self.device)
-        if stream is not None and stream != producer:
-            stream.wait_stream(producer)
-            for a in args:
-                if isinstance(a, torch.Tensor):
-                    a.record_stream(stream)
-        with torch.cuda.stream(stream):          # None: the current one
-            q = self._copy_out(buf, p, getattr(exe, "static_input", None))
-            out = _host_copy(exe(q, *args), host)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return Launched(out=out, m=keys.size, instrumented=instrumented,
-                        done=done)
+        valid = self.slice_valid(m, p)
+        launched = Launched(parts=[], m=m, instrumented=instrumented)
+        try:
+            for k, dev in enumerate(self.devices):
+                exe, bind = exes[k], tuple(binds[k])
+                args = ((valid[k],) if instrumented else ()) + bind
+                if dev.type != "cuda":
+                    launched.parts.append(exe(self._place(buf, p, k), *args))
+                    continue
+                stream = (streams or {}).get(dev)
+                producer = torch.cuda.current_stream(dev)
+                if stream is not None and stream != producer:
+                    stream.wait_stream(producer)
+                    for a in bind:
+                        if isinstance(a, torch.Tensor):
+                            a.record_stream(stream)
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    q = self._place(buf, p, k,
+                                    getattr(exe, "static_input", None))
+                    launched.parts.append(
+                        _host_copy(exe(q, *args), hosts[k]))
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    launched.done.append(done)
+        except BaseException:
+            # nothing the launched slices read is released under them
+            for ev in launched.done:
+                ev.synchronize()
+            raise
+        return launched
 
     @staticmethod
     def complete(launched: Launched):
-        """The completion half: wait on the launch's own event (batches
-        launched after it keep running), copy its outputs out of the
-        slot's pinned buffers, and slice them as `finalize` slices."""
-        out = launched.out
-        if launched.done is not None:
-            launched.done.synchronize()
-            out = _own(out)
-        return ShardedDispatcher.finalize(out, launched.m,
-                                          instrumented=launched.instrumented)
+        """The completion half: wait on the launch's own events (batches
+        launched after it keep running), copy each slice's outputs out of
+        its host set (or read them back, on the synchronous path), join
+        the slices in order and slice off the pad lanes as `finalize`
+        does."""
+        if launched.done:
+            for ev in launched.done:
+                ev.synchronize()
+            parts = [_own(o) for o in launched.parts]
+        else:
+            parts = [_to_host(o) for o in launched.parts]
+        return ShardedDispatcher.finalize(
+            _join(parts, launched.instrumented), launched.m,
+            instrumented=launched.instrumented)
 
     @staticmethod
     def finalize(out, m: int, instrumented: bool = False):
-        """Wait for a launched computation and slice off the pad lanes:
-        the completion half of dispatch, and the only point that waits
-        on the device.
+        """Slice off the pad lanes of one whole batch's outputs.
 
         Plain lookups come back as int64 positions.  A scan's ``(pos,
         window)`` comes back as int64 positions and the window decoded to
@@ -245,24 +362,45 @@ class ShardedDispatcher:
             return pos[:m].cpu().numpy(), decode_keys(window[:m])
         return out[:m].cpu().numpy()
 
+    def slice_fns(self, fn, backend: str = "torch") -> Tuple:
+        """One lookup callable a slice: a plan compiled for ``backend``
+        on each slice's device (`LookupPlan.to`), one callable for every
+        slice, or the callables themselves, one a slice."""
+        if isinstance(fn, plan_mod.LookupPlan):
+            return tuple(fn.to(d).compile(backend=backend)
+                         for d in self.devices)
+        if callable(fn):
+            return (fn,) * self.n_shards
+        fns = tuple(fn)
+        if len(fns) != self.n_shards:
+            raise ValueError(f"{len(fns)} callables for {self.n_shards} "
+                             f"slices")
+        return fns
+
     def __call__(self, fn, keys: np.ndarray, backend: str = "torch",
                  n_valid_arg: bool = False):
-        """Run a plan (compiled on demand for ``backend``) or any lookup
-        callable on ``keys``, synchronously: launch then finalize.
+        """Run a plan (compiled on demand for ``backend``) or lookup
+        callables (`slice_fns`) on ``keys``, synchronously: launch every
+        slice, then complete.
 
-        ``n_valid_arg=True`` passes the real (pre-pad) batch size as a
-        second argument: the instrumented-lookup convention.
+        ``n_valid_arg=True`` passes each slice's real (pre-pad) key count
+        as a second argument: the instrumented-lookup convention.
         """
-        if isinstance(fn, plan_mod.LookupPlan):
-            fn = fn.compile(backend=backend)
+        fns = self.slice_fns(fn, backend)
         keys = np.asarray(keys, dtype=np.uint64)
+        m = keys.size
         with maybe_span(self.recorder, "pad_place", cat="serve",
-                        n_keys=int(keys.size)):
-            q, p = self.pad_and_place(keys)
+                        n_keys=int(m)):
+            qs, p = self.pad_and_place(keys)
         with maybe_span(self.recorder, "device", cat="serve",
                         padded=int(p), n_shards=self.n_shards):
-            out = fn(q, int(keys.size)) if n_valid_arg else fn(q)
-            return self.finalize(out, keys.size, instrumented=n_valid_arg)
+            valid = self.slice_valid(m, p)
+            parts = []
+            for k, (f, q) in enumerate(zip(fns, qs)):
+                with device_guard(self.devices[k]):
+                    parts.append(f(q, valid[k]) if n_valid_arg else f(q))
+            return self.complete(Launched(parts=parts, m=m,
+                                          instrumented=n_valid_arg))
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +497,9 @@ class RoutedDispatcher:
     O(batch/shards).
 
     ``devices`` are the cards the lanes are spread over (round robin,
-    `shard_replica_groups`); every shard generation a lane runs must
-    live on that lane's device.  The service builds every shard on its
-    one device and passes only that device, so on one card every lane
+    `shard_replica_groups`; None: every visible card); every shard
+    generation a lane runs must have a copy on that lane's device, which
+    the registry places on the same groups.  On one card every lane
     shares it.
     """
 
@@ -371,8 +509,7 @@ class RoutedDispatcher:
         self.recorder = recorder
         self._rr_lock = threading.Lock()
         self.lanes_epoch = 0
-        self._devices = ([resolve_device(None)] if devices is None
-                         else [torch.device(d) for d in devices])
+        self._devices = serving_devices(devices=devices)
         #: the first lane device (the one card the service serves on)
         self.device = self._devices[0]
         self._build_lanes(topology)
@@ -380,7 +517,7 @@ class RoutedDispatcher:
     def _build_lanes(self, topology):
         groups = shard_replica_groups(self._devices, topology.replicas)
         self.lanes = tuple(
-            tuple(ShardedDispatcher(device=dev,
+            tuple(ShardedDispatcher(devices=(dev,),
                                     pad_quantum=self.pad_quantum,
                                     recorder=self.recorder)
                   for dev in grp)
@@ -439,14 +576,15 @@ class RoutedDispatcher:
     def launch(self, rctx: RoutedContext, kind: str, aux: int,
                keys: np.ndarray, routes=None, exec_cache=None,
                take_host: Optional[Callable[[], Dict]] = None,
-               stream=None) -> _RoutedHandle:
+               streams: Optional[Dict] = None) -> _RoutedHandle:
         """Scatter one admitted batch over its shard lanes; returns a
         `_RoutedHandle` (completion is the handle's ``finalize``).
 
         With ``exec_cache`` (the async path) each touched lane resolves
         its executable through the cache and launches it with
-        `ShardedDispatcher.launch` on ``stream``, copying its outputs
-        into a pinned host set of its own from ``take_host()``; without
+        `ShardedDispatcher.launch` on ``streams[lane device]``, copying
+        its outputs into a pinned host set of its own from
+        ``take_host()``; without
         it (the sync path) each lane's callable runs on its placed
         sub-batch.  Empty shards launch nothing.  If a lane fails to
         launch, the lanes already launched are waited for before the
@@ -482,23 +620,27 @@ class RoutedDispatcher:
                 ctx = rctx.lane_ctxs[s][r]
                 make_fn = ((lambda c=ctx: c.read_fn) if kind != "scan"
                            else (lambda c=ctx, a=aux: c.scan_fn(int(a))))
-                args = (c,) if instr else ()
                 if exec_cache is not None:
                     p = lane.padded_size(c)
-                    exe = exec_cache.get(ctx, kind, aux, p, make_fn, lane)
+                    exe = exec_cache.get(ctx, kind, aux, p, make_fn,
+                                         lane.device)
                     exes.append(exe)
-                    launched = lane.launch(exe, sub, args, host=take_host(),
-                                           instrumented=instr, stream=stream)
+                    launched = lane.launch((exe,), sub, ((),),
+                                           (take_host(),),
+                                           instrumented=instr,
+                                           streams=streams)
                 else:
-                    q, p = lane.pad_and_place(sub)
-                    launched = Launched(out=make_fn()(q, *args), m=c,
+                    (q,), p = lane.pad_and_place(sub)
+                    with device_guard(lane.device):
+                        out = make_fn()(q, c) if instr else make_fn()(q)
+                    launched = Launched(parts=[out], m=c,
                                         instrumented=instr)
                 padded += p
                 subs.append((s, launched))
         except BaseException:
             for _, launched in subs:
-                if launched.done is not None:
-                    launched.done.synchronize()
+                for ev in launched.done:
+                    ev.synchronize()
             raise
         return _RoutedHandle(subs, order, counts, padded, m, kind,
                              instr, rctx, exes)

@@ -6,7 +6,7 @@ futures, only then admit the next batch.  This module rebuilds the path
 the way inference servers do:
 
   executable cache   `ExecutableCache` maps ``(context key, kind, aux,
-                     pow2 batch bucket)`` to a ready-to-run executable.
+                     batch bucket, device)`` to a ready-to-run executable.
                      On a CUDA device a plan's callable is captured as a
                      CUDA graph for the bucket (`GraphExecutable`): the
                      dozens of launches of an instrumented read (predict,
@@ -19,12 +19,13 @@ the way inference servers do:
 
   double buffering   the DISPATCH thread takes a batch, pins its context,
                      stages it, and LAUNCHES the device step on the
-                     executor's own stream, with the copy of the outputs
-                     into its slot's pinned host buffers and an event
-                     behind it, without waiting; the COMPLETION thread
-                     waits on that event and resolves futures.  Admission
-                     and host-side completion of batch N overlap the
-                     device work of batch N+1.
+                     executor's own stream of each card (one
+                     high-priority stream a card), with the copy of the
+                     outputs into its slot's pinned host buffers and an
+                     event behind it, without waiting; the COMPLETION
+                     thread waits on those events and resolves futures.
+                     Admission and host-side completion of batch N
+                     overlap the device work of batch N+1.
 
   slot ring          launched batches ride a bounded FIFO ring of
                      in-flight slots.  Admission (`submit`) never blocks;
@@ -53,11 +54,18 @@ falls back to eager launches.  The kernel wrappers count
 a launch when it is captured, not when it is replayed, so the cache
 counts each graph's replays and the launches it captured.
 
-Routed batches: a `RoutedContext` launches one graph replay per shard
-lane the batch touches (`dispatch.RoutedDispatcher.launch`), each into a
-pinned host set of its own, and rides the ring as one slot that keeps
-every lane's executable and the context (every shard generation and scan
-head) until it completes.
+Several cards: a broadcast batch pins one `AsyncContext` a slice of the
+data axis (a tuple, one per dispatcher device, each over its device's
+replica) and launches one executable a slice on that slice's card
+(`dispatch.ShardedDispatcher.launch`), each into a pinned host set of its
+own.  Routed batches: a `RoutedContext` launches one graph replay per
+shard lane the batch touches (`dispatch.RoutedDispatcher.launch`), each
+into a pinned host set of its own.  Either way the batch rides the ring
+as one slot that keeps every card's executable and the context (every
+replica, shard generation and scan head) until it completes: a swap never
+frees memory a queued replay on any card still reads.  A graph is
+captured and replayed under its own card (`torch.cuda.device`), whatever
+the calling thread's current device.
 
 A port of the reference's `repro.serve.lookup.executor`.
 """
@@ -76,7 +84,8 @@ import torch
 
 from repro_torch.kernels.common import encode_keys
 from repro_torch.obs.trace import maybe_span
-from repro_torch.serve.lookup.dispatch import RoutedContext
+from repro_torch.serve.lookup.dispatch import (RoutedContext, device_guard,
+                                               distinct)
 
 __all__ = ["AsyncContext", "AsyncExecutor", "ExecutableCache",
            "GraphExecutable", "GraphStats", "WorkItem",
@@ -113,7 +122,9 @@ class WorkItem:
 
     kind: str                           # "read" | "scan" | "insert"
     group: List                         # PendingRequests, admission order
-    ctx: Optional[AsyncContext] = None  # device kinds only
+    #: device kinds only: one AsyncContext a slice (a tuple), or a
+    #: RoutedContext
+    ctx: Any = None
     aux: int = 0                        # scan length for kind="scan"
     apply_fn: Optional[Callable] = None  # host op (inserts): group -> array
 
@@ -150,7 +161,8 @@ _CAPTURE_LOCK = threading.Lock()
 
 
 def kernel_launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts, by kernel name."""
+    """The kernel wrappers' launch counts, by kernel name (every card's;
+    each wrapper's ``by_device`` splits its count by card)."""
     from repro_torch.kernels.bounded_search import kernel as bs_kernel
     from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 
@@ -174,6 +186,8 @@ class GraphStats:
         self.graph_replays = 0
         self.warm_replays = 0
         self.kernel_launches: Dict[str, int] = {}
+        #: the same launches by card: device name -> kernel -> launches
+        self.kernel_launches_by_device: Dict[str, Dict[str, int]] = {}
 
     def note(self, exe: "GraphExecutable", warm: bool) -> None:
         with self._mu:
@@ -182,8 +196,11 @@ class GraphStats:
                 self.warm_replays += 1
             else:
                 self.graph_replays += 1
+            per = self.kernel_launches_by_device.setdefault(
+                str(exe.device), {})
             for k, c in exe.captured.items():
                 self.kernel_launches[k] = self.kernel_launches.get(k, 0) + c
+                per[k] = per.get(k, 0) + c
 
     def snapshot(self) -> Dict[str, Any]:
         with self._mu:
@@ -191,6 +208,13 @@ class GraphStats:
                     "graph_replays": self.graph_replays,
                     "warm_replays": self.warm_replays,
                     "kernel_launches": dict(self.kernel_launches)}
+
+    def by_device(self) -> Dict[str, Dict[str, int]]:
+        """The replays' kernel launches by card: device name -> kernel ->
+        launches."""
+        with self._mu:
+            return {d: dict(v)
+                    for d, v in self.kernel_launches_by_device.items()}
 
 
 class GraphExecutable:
@@ -219,6 +243,8 @@ class GraphExecutable:
         self.bucket = int(bucket)
         self.instrumented = bool(instrumented)
         self.stats = stats
+        #: the card the graph is captured on and replays on
+        self.device = torch.device(device)
         self.static_input = torch.zeros(self.bucket, dtype=torch.int64,
                                         device=device)
         self.static_n = (torch.full((), self.bucket, dtype=torch.int32,
@@ -231,7 +257,9 @@ class GraphExecutable:
         side = torch.cuda.Stream(device, priority=0)
         side.wait_stream(torch.cuda.current_stream(device))
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.stream(side):
+        # capture_begin records on the current device: make it the card
+        with _CAPTURE_LOCK, torch.cuda.device(self.device), \
+                torch.cuda.stream(side):
             eager = fn(self.static_input, *args)
             before = kernel_launch_counts()
             # a garbage collection inside the capture could free a graph
@@ -266,7 +294,8 @@ class GraphExecutable:
             if b is not self._last_bind[i]:
                 self.static_bind[i].copy_(b, non_blocking=True)
         self._last_bind = tuple(rest)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         if self.stats is not None:
             self.stats.note(self, warm=False)
         return self.out
@@ -285,7 +314,8 @@ def _check_replay(eager, replayed) -> None:
 
 
 class ExecutableCache:
-    """(context key, kind, aux, bucket) -> ready-to-run executable.
+    """(context key, kind, aux, bucket, device) -> ready-to-run
+    executable.
 
     A **miss** builds the executable (a captured CUDA graph for a plan's
     callable on a CUDA device, the callable itself otherwise); a **hit**
@@ -330,28 +360,32 @@ class ExecutableCache:
         over the cache's life (`GraphStats`)."""
         return self.graph_stats_sink.snapshot()
 
+    def graph_launches_by_device(self) -> Dict[str, Dict[str, int]]:
+        """`graph_stats`'s kernel launches split by card."""
+        return self.graph_stats_sink.by_device()
+
     # -- build/get -------------------------------------------------------
-    def _build(self, fn, bucket: int, bind: Tuple, dispatcher,
+    def _build(self, fn, bucket: int, bind: Tuple, device,
                instrumented: bool = False):
         """Capture ``fn`` for the padded bucket when it is a plan's
         callable on a CUDA device; otherwise return it unchanged (the
         CPU, or an injected plain callable)."""
         if getattr(fn, "lookup_plan", None) is None \
-                or dispatcher.device.type != "cuda":
+                or device.type != "cuda":
             return fn
-        return GraphExecutable(fn, bucket, bind, instrumented,
-                               dispatcher.device,
+        return GraphExecutable(fn, bucket, bind, instrumented, device,
                                stats=self.graph_stats_sink)
 
     def get(self, ctx: AsyncContext, kind: str, aux: int, bucket: int,
-            make_fn: Callable, dispatcher, warm: bool = False):
-        """Return the executable for one cell, building it on a miss.
+            make_fn: Callable, device, warm: bool = False):
+        """Return the executable for one cell on ``device`` (the card
+        whose replica ``ctx`` reads), building it on a miss.
 
         ``make_fn`` produces the source callable (``gen.fn``, a merged fn,
         a scan); it only runs on a miss.  ``warm=True`` counts the build
         as a warm-up compile instead of a serving-path miss.
         """
-        key = (ctx.key, kind, int(aux), int(bucket))
+        key = (ctx.key, kind, int(aux), int(bucket), device)
         with self._mu:
             exe = self._exes.get(key)
             hit = exe is not None
@@ -367,7 +401,7 @@ class ExecutableCache:
                             kind=kind, aux=int(aux), bucket=int(bucket),
                             version=ctx.key[0], warm=bool(warm)):
                 exe = self._build(
-                    make_fn(), bucket, ctx.bind, dispatcher,
+                    make_fn(), bucket, ctx.bind, device,
                     instrumented=ctx.instrumented and kind == "read")
             with self._mu:
                 self._exes[key] = exe
@@ -393,10 +427,11 @@ class ExecutableCache:
                 del self._exes[k]
             return len(stale)
 
-    def warmup(self, ctx: AsyncContext, buckets, dispatcher,
+    def warmup(self, ctx: AsyncContext, buckets, device,
                scan_lengths=()) -> int:
         """Build read (and optionally scan) executables for ``buckets``
-        and run one dummy batch through each: after this, the first real
+        on ``device`` and run one dummy batch through each: after this,
+        the first real
         batch of a warmed bucket is a cache hit with no capture and no
         first-touch initialization.  A graph ran its dummy batch when it
         was built (a built graph may already be serving, so it is not
@@ -410,16 +445,17 @@ class ExecutableCache:
         for bucket in buckets:
             for kind, aux, make_fn in cells:
                 exe = self.get(ctx, kind, aux, int(bucket), make_fn,
-                               dispatcher, warm=True)
+                               device, warm=True)
                 if not isinstance(exe, GraphExecutable):
                     args = ((int(bucket),)
                             if ctx.instrumented and kind == "read" else ())
                     dummy = encode_keys(
                         np.full(int(bucket), ctx.sample_key, np.uint64),
-                        dispatcher.device)
-                    exe(dummy, *args, *ctx.bind)
-                    if dispatcher.device.type == "cuda":
-                        torch.cuda.synchronize(dispatcher.device)
+                        device)
+                    with device_guard(device):
+                        exe(dummy, *args, *ctx.bind)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
                 n += 1
         return n
 
@@ -451,13 +487,16 @@ class AsyncExecutor:
                              "(double buffering)")
         self.svc = service
         self.slots = int(slots)
-        dev = service.dispatcher.device
-        #: the stream every launch of this executor goes on (None: CPU).
-        #: torch hands streams out round-robin from a pool per priority;
-        #: the executor takes a high-priority one, so it is never the
-        #: default-priority side stream a graph is being captured on
-        self.stream = (torch.cuda.Stream(dev, priority=-1)
-                       if dev.type == "cuda" else None)
+        #: card -> the stream every launch of this executor on that card
+        #: goes on (a CPU device has none).  torch hands streams out
+        #: round-robin from a pool per priority; the executor takes a
+        #: high-priority one, so it is never the default-priority side
+        #: stream a graph is being captured on
+        self.streams = {d: torch.cuda.Stream(d, priority=-1)
+                        for d in distinct(service.devices)
+                        if d.type == "cuda"}
+        #: the first card's stream (None: the CPU)
+        self.stream = self.streams.get(service.devices[0])
         self._ring: "queue.Queue" = queue.Queue(maxsize=self.slots)
         # pinned host output sets (one dict of buffers each): a launch
         # takes one per lane it launches on (one for a broadcast batch,
@@ -564,6 +603,7 @@ class AsyncExecutor:
         ctx = item.ctx
         instr = False
         routed = isinstance(ctx, RoutedContext)
+        version = -1
         hosts: List[Dict] = []
 
         def take_host() -> Dict:
@@ -580,23 +620,28 @@ class AsyncExecutor:
                 out = svc.dispatcher.launch(
                     ctx, item.kind, item.aux, keys, routes=routes,
                     exec_cache=svc.exec_cache, take_host=take_host,
-                    stream=self.stream)
+                    streams=self.streams)
                 exe, padded = out.exes, out.padded
-            elif not isinstance(ctx, AsyncContext):
+                version = ctx.key[0]
+            elif not (isinstance(ctx, tuple) and ctx
+                      and all(isinstance(c, AsyncContext) for c in ctx)):
                 raise TypeError(
                     f"no dispatch path for a {type(ctx).__name__} context")
             else:
-                make_fn = ((lambda: ctx.read_fn) if item.kind == "read"
-                           else (lambda: ctx.scan_fn(item.aux)))
-                padded = svc.dispatcher.padded_size(keys.size)
-                exe = svc.exec_cache.get(ctx, item.kind, item.aux, padded,
-                                         make_fn, svc.dispatcher)
-                instr = ctx.instrumented and item.kind == "read"
-                args = ((keys.size,) if instr else ()) + tuple(ctx.bind)
-                out = svc.dispatcher.launch(exe, keys, args,
-                                            instrumented=instr,
-                                            stream=self.stream,
-                                            host=take_host())
+                disp = svc.dispatcher
+                padded = disp.padded_size(keys.size)
+                bucket = padded // disp.n_shards
+                exe = tuple(
+                    svc.exec_cache.get(
+                        c, item.kind, item.aux, bucket,
+                        ((lambda c=c: c.read_fn) if item.kind == "read"
+                         else (lambda c=c: c.scan_fn(item.aux))), dev)
+                    for c, dev in zip(ctx, disp.devices))
+                instr = ctx[0].instrumented and item.kind == "read"
+                out = disp.launch(exe, keys, [c.bind for c in ctx],
+                                  [take_host() for _ in ctx],
+                                  instrumented=instr, streams=self.streams)
+                version = ctx[0].key[0]
         except BaseException as e:       # noqa: BLE001 — fail the group only
             self._put(_Slot(group=group, kind=item.kind, error=e,
                             ctx=ctx, hosts=hosts, t_submit_oldest=t_oldest,
@@ -615,7 +660,7 @@ class AsyncExecutor:
         self._put(_Slot(group=group, kind=item.kind, out=out, exe=exe,
                         ctx=ctx, hosts=hosts, m=keys.size, padded=padded,
                         t_submit_oldest=t_oldest, t_launch=t0,
-                        version=ctx.key[0], instrumented=instr,
+                        version=version, instrumented=instr,
                         routed=routed))
 
     def _put(self, slot: _Slot) -> None:

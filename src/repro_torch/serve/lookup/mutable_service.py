@@ -10,7 +10,10 @@ dispatch the merged lookup.  That ordering is exactly what the
 oracle-replay invariant is stated against: any read admitted after an
 insert observes it once flushed.  Both executors: on the async one an
 insert run is applied on the dispatch thread when it is reached, and the
-merged read's delta is a bound operand of the cached graph.
+merged read's delta is a bound operand of the cached graph.  Over
+several cards each slice's merged lookup binds its own card's copy of
+the pinned delta (`DeltaBuffer.on`), so an insert is seen on every card
+at its next batch.
 
 Compaction: after an insert run pushes the delta past
 ``compact_threshold``, a background compaction thread folds base + delta
@@ -57,9 +60,9 @@ class MutableLookupService(LookupService):
 
     def __init__(self, keys: np.ndarray,
                  config: Optional[MutableLookupServiceConfig] = None,
-                 device=None, counter=None):
-        """Serve reads and inserts over ``keys`` on ``device`` (None: the
-        CUDA card)."""
+                 device=None, counter=None, devices=None):
+        """Serve reads and inserts over ``keys`` on ``device``, or over
+        the list ``devices`` (neither: every visible CUDA card)."""
         self.mindex = None   # MutableIndex, created by the first swap_keys
         self._compact_thread: Optional[threading.Thread] = None
         self._compact_spawn_mu = threading.Lock()
@@ -72,7 +75,8 @@ class MutableLookupService(LookupService):
             raise ValueError(
                 "MutableLookupService does not support a routed topology"
                 " yet — serve writes through a broadcast service")
-        super().__init__(keys, config=cfg, device=device, counter=counter)
+        super().__init__(keys, config=cfg, device=device, counter=counter,
+                         devices=devices)
 
     # -- index lifecycle -------------------------------------------------
     def swap_keys(self, keys: np.ndarray) -> Generation:
@@ -120,25 +124,33 @@ class MutableLookupService(LookupService):
         else:
             super()._dispatch_run(kind, run, ctx)
 
+    def _slice_views(self, view):
+        """``(generation copy, delta copy)`` each dispatcher slice
+        reads, in slice order."""
+        return [(view.generation.on(d), view.delta.on(d))
+                for d in self.devices]
+
     def _pin_context(self):
         """Each run pins one immutable (generation, delta) PAIR, the
         atomic unit that keeps a concurrent compaction from being
-        observed half-applied.  Scans go through the plan's merged-scan
+        observed half-applied, read on each slice's card from that
+        card's copies.  Scans go through the plan's merged-scan
         transform; with health on, reads run the instrumented merged
         lookup (merged ranks, base-plan stats)."""
         view = self.mindex.view()
-        delta_dev = view.delta.device
-        gen = view.generation
+        pairs = self._slice_views(view)
 
         def scan_for(m: int):
-            fn = view.scan_fn(m)
-            return lambda q: fn(q, delta_dev)
+            return tuple((lambda q, f=g.merged_scan_fn(m), d=d: f(q, d))
+                         for g, d in pairs)
 
         if self.health is not None:
-            ifn = gen.instrumented_merged_fn()
-            return (lambda q, n_valid: ifn(q, n_valid, delta_dev),
-                    scan_for, gen.version)
-        return view.lookup, scan_for, gen.version
+            fns = tuple((lambda q, n_valid, f=g.instrumented_merged_fn(),
+                         d=d: f(q, n_valid, d)) for g, d in pairs)
+        else:
+            fns = tuple((lambda q, f=g.merged_fn(), d=d: f(q, d))
+                        for g, d in pairs)
+        return fns, scan_for, view.generation.version
 
     def _insert_apply(self, run) -> np.ndarray:
         """Land one insert run in the delta (host-side, in admission
@@ -182,23 +194,24 @@ class MutableLookupService(LookupService):
                                       t_launch=t0, t_end=t_end)
 
     # -- async executor plumbing -----------------------------------------
-    def _async_context(self) -> AsyncContext:
-        """Pin one (generation, delta) view as a cacheable context.  The
-        merged fn takes the padded delta as an ARGUMENT (``bind``), so the
-        cached graph survives insert traffic; the padded delta LENGTH is
-        part of the key: a pow2 pad-boundary crossing is a (correct,
-        observable) miss."""
+    def _async_context(self):
+        """Pin one (generation, delta) view as cacheable contexts, one a
+        slice, each binding its card's copies.  The merged fn takes the
+        padded delta as an ARGUMENT (``bind``), so the cached graph
+        survives insert traffic; the padded delta LENGTH is part of the
+        key: a pow2 pad-boundary crossing is a (correct, observable)
+        miss."""
         view = self.mindex.view()
-        delta_dev = view.delta.device
         instrumented = self.health is not None
-        return AsyncContext(
-            key=(view.generation.version, int(delta_dev.shape[0])),
-            read_fn=(view.generation.instrumented_merged_fn()
-                     if instrumented else view.merged_fn),
-            scan_fn=view.scan_fn,
-            bind=(delta_dev,),
+        key = (view.generation.version, int(view.delta.device.shape[0]))
+        return tuple(AsyncContext(
+            key=key,
+            read_fn=(g.instrumented_merged_fn() if instrumented
+                     else g.merged_fn()),
+            scan_fn=g.merged_scan_fn,
+            bind=(d,),
             sample_key=view.generation.sample_key,
-            instrumented=instrumented)
+            instrumented=instrumented) for g, d in self._slice_views(view))
 
     def _async_work_items(self, batch):
         """Re-pin PER RUN (the sync `_process_batch` contract): an insert

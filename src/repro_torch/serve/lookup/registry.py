@@ -17,6 +17,16 @@ never stall admission or dispatch.
 A `RoutedGeneration` is one published SET of per-shard generations plus
 the `ShardTopology` that routes into them, swapped in as one unit.
 
+Replicas: a registry serves on a list of devices (one card, every card,
+or any list; a device may repeat).  A generation is lowered, and its
+bounds and any fused state verified, once, on the device its build lies
+on; it is then copied to each other device it is served from
+(`LookupPlan.to`), and `Generation.on` names the copy a device reads.
+The copies are made before the publish, so a publish swaps every card's
+replica as one unit.  A broadcast generation is placed on every serving
+device, a routed shard on the devices of its replica group
+(`shard_replica_groups`).
+
 A port of the reference's `repro.serve.lookup.registry`.
 """
 from __future__ import annotations
@@ -36,7 +46,8 @@ from repro_torch.kernels.common import (decode_keys, encode_keys,
 from repro_torch.obs.trace import maybe_span
 from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.dispatch import make_plan
-from repro_torch.serve.lookup.topology import ShardTopology
+from repro_torch.serve.lookup.topology import (ShardTopology,
+                                               shard_replica_groups)
 
 DEFAULT_NAME = "default"
 
@@ -60,6 +71,46 @@ class Generation:
     #: Shard index inside a `RoutedGeneration` (None for broadcast
     #: generations), threaded into per-shard health records.
     shard: Optional[int] = None
+    #: device -> this generation copied there (`place`), the same
+    #: version: the copies every other serving device reads
+    _replicas: Dict[torch.device, "Generation"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        """The device this copy's keys and plan lie on."""
+        return self.data.device
+
+    def on(self, device) -> "Generation":
+        """This generation's copy on ``device``: itself on its own device,
+        else a replica made by `place`.  A device it was never placed on
+        raises: no other device's copy serves in its stead."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        gen = self._replicas.get(device)
+        if gen is None:
+            raise KeyError(f"generation {self.version} has no replica on "
+                           f"{device}")
+        return gen
+
+    def place(self, devices) -> "Generation":
+        """Copy this generation to each of ``devices`` it is not on yet:
+        the same verified plan state and keys (`LookupPlan.to`), a plan
+        cache of its own, the lookup compiled on the copy.  Returns
+        itself."""
+        with _PLACE_LOCK:
+            for dev in devices:
+                dev = torch.device(dev)
+                if dev == self.device or dev in self._replicas:
+                    continue
+                plan = self.plan.to(dev)
+                self._replicas[dev] = dataclasses.replace(
+                    self, build=dataclasses.replace(
+                        self.build, state=plan.bounds.state),
+                    data=plan.data, plan=plan,
+                    fn=plan.compile(backend=self.backend), _replicas={})
+        return self
 
     def scan_fn(self, m: int) -> Callable:
         """Plan-compiled scan (positions + m-record window), cached on
@@ -83,6 +134,20 @@ class Generation:
         """Instrumented merged-view lookup ``(q, n_valid, delta) ->
         (merged LB, base-plan health stats)`` for the mutable service."""
         return self.plan.compile_instrumented_merged(backend=self.backend)
+
+    def merged_fn(self) -> Callable:
+        """Merged-view lookup ``(q, delta) -> merged LB``."""
+        return self.plan.compile_merged(backend=self.backend)
+
+    def merged_scan_fn(self, m: int) -> Callable:
+        """Merged-view scan ``(q, delta) -> (merged LB, m-record
+        window)``."""
+        return self.plan.compile_merged_scan(m, backend=self.backend)
+
+
+#: serializes `Generation.place` (a publish and a rebalance may place the
+#: same generation at once)
+_PLACE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -134,27 +199,30 @@ class RoutedGeneration:
         spill when every shard holds at least ``m`` keys."""
         return self.topology.min_shard_len
 
-    def shard_scan_fn(self, s: int, m: int) -> Callable:
-        """Scan for shard ``s``: the shard-local window merged with the
-        head of shard ``s+1``.  All shard-s records sort strictly below
-        all shard-(s+1) records (boundaries are snapped to duplicate
-        runs), so the first ``m`` of the sorted union is exactly the
-        global window, the same argument as the delta merged scan.  The
+    def shard_scan_fn(self, s: int, m: int, device=None) -> Callable:
+        """Scan for shard ``s`` on ``device`` (None: the shard's own):
+        the shard-local window merged with the head of shard ``s+1``,
+        both read from the copies on that device.  All shard-s records
+        sort strictly below all shard-(s+1) records (boundaries are
+        snapped to duplicate runs), so the first ``m`` of the sorted
+        union is exactly the global window, the same argument as the
+        delta merged scan.  The
         sort runs on encoded keys, where the window's past-the-end pad
         (``INT64_MAX``, the code of ``UINT64_MAX``) sorts last; decoding
         happens at completion.  Tagged with the shard's plan, so the
         executor captures it as a CUDA graph like the plan's own scan."""
-        key = (int(s), int(m))
+        gen = self.shards[s]
+        gen = gen.on(gen.device if device is None else device)
+        key = (int(s), int(m), gen.device)
         fn = self._scan_cache.get(key)
         if fn is not None:
             return fn
-        gen = self.shards[s]
         if s == len(self.shards) - 1:
             fn = gen.scan_fn(m)          # the pad is global here
         else:
             run = gen.plan.compile(backend=gen.backend)
             data = gen.plan.data
-            head = self.shards[s + 1].data[:m]
+            head = self.shards[s + 1].data[:m].to(gen.device)
 
             def scan(q):
                 pos = run(q)
@@ -171,11 +239,18 @@ class RoutedGeneration:
 
 
 class IndexRegistry:
-    """Name -> current `Generation`, with builds placed on ``device``
-    (None: the CUDA card)."""
+    """Name -> current `Generation`, served from ``devices`` (a device
+    may repeat) or from the one ``device`` (None: the current CUDA card).
+    Builds run on the first device, which `device` names."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, devices=None):
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = ([resolve_device(d) for d in devices]
+                        if devices is not None else [resolve_device(device)])
+        if not self.devices:
+            raise ValueError("a registry needs at least one device")
+        self.device = self.devices[0]
         self._lock = threading.Lock()
         self._versions = MonotonicCounter()
         self._current: Dict[str, Generation] = {}
@@ -220,10 +295,12 @@ class IndexRegistry:
     def publish_prebuilt(self, gen: Generation,
                          name: str = DEFAULT_NAME) -> Generation:
         """Swap in a Generation made earlier with `make_generation`: the
-        object that was checked is the one that goes live.  Health,
+        object that was checked is the one that goes live, placed first
+        on every device of this registry it is not on yet.  Health,
         trace and subscriber fan-out as in `publish`.  A generation made
         by another registry keeps its version; this registry's later
         versions stay above it."""
+        gen.place(self.devices)
         with self._lock:
             self._current[name] = gen
             subscribers = list(self._subscribers)
@@ -242,12 +319,15 @@ class IndexRegistry:
                         last_mile: Optional[str] = None,
                         backend: str = "torch",
                         spec: Optional[spec_mod.IndexSpec] = None,
-                        shard: Optional[int] = None) -> Generation:
+                        shard: Optional[int] = None,
+                        devices=None) -> Generation:
         """Lower a build to a versioned Generation WITHOUT publishing it
         (the routed publish path assembles several of these and swaps
-        them in as one unit).  Compiling the lookup here prepares
-        whatever the backend derives from the plan (RMI's fused f32
-        state), before the swap."""
+        them in as one unit), over encoded ``data`` on the build's
+        device.  Compiling the lookup here prepares whatever the backend
+        derives from the plan (RMI's fused f32 state), before the swap;
+        the generation is then placed on ``devices`` (None: every device
+        of this registry)."""
         plan = make_plan(build, data, last_mile=last_mile)
         if spec is None:
             spec = build.meta.get("spec")
@@ -267,16 +347,24 @@ class IndexRegistry:
             sample_key=(int(decode_keys(data[:1])[0]) if data.shape[0]
                         else 1),
             shard=shard,
-        )
+        ).place(self.devices if devices is None else devices)
+
+    def shard_devices(self, topology: ShardTopology):
+        """Each shard's replica group over this registry's devices: the
+        devices its lanes run on (`shard_replica_groups`)."""
+        return shard_replica_groups(self.devices, topology.replicas)
 
     def publish_routed(self, shard_gens, topology: ShardTopology,
                        name: str = DEFAULT_NAME,
                        spec: Optional[spec_mod.IndexSpec] = None,
                        backend: str = "torch") -> RoutedGeneration:
-        """Swap a complete shard set in as one RoutedGeneration.  Shard
-        generations made by another registry keep their versions; this
-        registry's later versions stay above them."""
-        for g in shard_gens:
+        """Swap a complete shard set in as one RoutedGeneration, each
+        shard placed first on its replica group's devices
+        (`shard_devices`).  Shard generations made by another registry
+        keep their versions; this registry's later versions stay above
+        them."""
+        for g, grp in zip(shard_gens, self.shard_devices(topology)):
+            g.place(grp)
             self._versions.advance_past(g.version)
         rgen = RoutedGeneration(
             version=self._versions.next(),
@@ -313,7 +401,9 @@ class IndexRegistry:
         slice (per-shard byte budget = total / shards); without one,
         every shard reuses the coerced spec: smaller slices still give
         tighter error bounds for the same hyperparameters.  Each shard's
-        bounds are verified by its own build on this registry's device.
+        bounds are verified by its own build, on the first device of its
+        replica group (a tuned build: on this registry's device), and the
+        shard is placed on that group.
         """
         sp = spec_mod.coerce(index, hyper, backend=backend,
                              last_mile=last_mile)
@@ -326,6 +416,7 @@ class IndexRegistry:
             shard_specs = [r.spec for r in results]
             builds = [r.build for r in results]
         gens = []
+        groups = self.shard_devices(topology)
         with maybe_span(self.recorder, "index_build", cat="lifecycle",
                         reg_name=name, index=sp.index,
                         n_keys=int(keys.size),
@@ -334,12 +425,12 @@ class IndexRegistry:
                 sl = keys[offs[s]:offs[s + 1]]
                 b = builds[s] if builds[s] is not None \
                     else spec_mod.build(shard_specs[s], sl,
-                                        device=self.device)
+                                        device=groups[s][0])
                 gens.append(self.make_generation(
-                    b, encode_keys(sl, self.device),
+                    b, encode_keys(sl, b.device),
                     last_mile=shard_specs[s].last_mile,
                     backend=shard_specs[s].backend,
-                    spec=shard_specs[s], shard=s))
+                    spec=shard_specs[s], shard=s, devices=groups[s]))
         return self.publish_routed(gens, topology, name=name, spec=sp,
                                    backend=sp.backend)
 

@@ -1,4 +1,5 @@
-"""`LookupService`: admission -> micro-batch -> dispatch, on one device.
+"""`LookupService`: admission -> micro-batch -> dispatch, over one card
+or several.
 
 Clients `submit()` small uint64 key arrays and get futures; a single
 flusher (the background thread started by `start()`, or explicit
@@ -23,14 +24,29 @@ against.  ``executor="async"`` swaps in the continuous-batching engine
 own stream without waiting, and a bounded ring of in-flight slots
 completed in FIFO order.
 
+Devices: ``device`` pins one; ``devices`` lists several (a device may
+repeat); neither means every visible CUDA card (`dispatch.
+data_axis_devices`), as the reference's service defaults to every local
+device (its `data_axis_mesh`).  With no card and no explicit device the
+service raises; it never carries on on the CPU unless asked.  Over
+several devices a broadcast batch is split into one contiguous slice a
+device, each answered against that device's replica of the generation
+and joined back in admission order, bit for bit the one-device answers
+(`dispatch.ShardedDispatcher`); the health record of the batch is the
+one-device record.  The registry places every generation on every
+device before it publishes it, and a queued batch on any card keeps the
+replica it reads alive until its slot completes.
+
 Range routing: ``shards > 1`` (or an explicit ``topology``) partitions
 the key space into contiguous ranges, each with its own generation, and
 dispatch scatters a batch over the shard lanes and gathers it back in
-admission order (`dispatch.RoutedDispatcher`); on one card every lane
-runs on it.  ``autotune`` attaches the shadow retuner
+admission order (`dispatch.RoutedDispatcher`).  Lane (shard, replica)
+runs on its own device (`shard_replica_groups` over the service's
+devices), where the registry placed that shard's generation; on one card
+every lane runs on it.  ``autotune`` attaches the shadow retuner
 (`repro_torch.autotune`).
 
-The reference's service, on one device.
+The reference's service, its data mesh a list of devices.
 """
 from __future__ import annotations
 
@@ -49,7 +65,8 @@ from repro_torch.serve.common import MonotonicCounter
 from repro_torch.serve.lookup.admission import LookupFuture, MicroBatcher
 from repro_torch.serve.lookup.dispatch import (PAD_QUANTUM, RoutedContext,
                                                RoutedDispatcher,
-                                               ShardedDispatcher)
+                                               ShardedDispatcher, distinct,
+                                               serving_devices)
 from repro_torch.serve.lookup.executor import (AsyncContext, AsyncExecutor,
                                                ExecutableCache, WorkItem)
 from repro_torch.serve.lookup.metrics import ServiceMetrics
@@ -173,19 +190,23 @@ class LookupService:
     def __init__(self, keys: np.ndarray,
                  config: Optional[LookupServiceConfig] = None,
                  device=None, counter: Optional[MonotonicCounter] = None,
-                 prebuilt: Optional[Generation] = None):
-        """Serve lookups over ``keys`` on ``device`` (None: the CUDA
-        card).  ``prebuilt``, a `Generation` over ``keys`` made by
-        `IndexRegistry.make_generation` or a `RoutedGeneration` (either
-        one served by another service on the same device), is published
-        as the first generation instead of building one."""
+                 prebuilt: Optional[Generation] = None, devices=None):
+        """Serve lookups over ``keys`` on ``device``, or over the list
+        ``devices`` (neither: every visible CUDA card).  ``prebuilt``, a
+        `Generation` over ``keys`` made by `IndexRegistry.make_generation`
+        or a `RoutedGeneration` (either one served by another service),
+        is published as the first generation instead of building one,
+        placed first on whichever of this service's devices it is not
+        on."""
         self.cfg = config if config is not None else LookupServiceConfig()
         _validate(self.cfg)
+        #: the data axis: every device this service serves from
+        self.devices = serving_devices(device, devices)
         #: span recorder, or None when tracing is off: every
         #: instrumentation site on the serve path shares this one object
         self.recorder = (SpanRecorder(self.cfg.trace_capacity)
                          if self.cfg.trace else None)
-        self.registry = IndexRegistry(device=device)
+        self.registry = IndexRegistry(devices=self.devices)
         self.registry.recorder = self.recorder
         #: per-generation health monitor, or None when disabled: attached
         #: BEFORE the first publish so the first generation has a record
@@ -203,7 +224,7 @@ class LookupService:
             rules=(default_rules() if self.cfg.alert_rules is None
                    else self.cfg.alert_rules))
         self.dispatcher = ShardedDispatcher(
-            device=self.registry.device, pad_quantum=self.cfg.pad_quantum,
+            devices=self.devices, pad_quantum=self.cfg.pad_quantum,
             recorder=self.recorder)
         self.metrics = ServiceMetrics(
             slo_p99_ms=self.cfg.slo_p99_ms,
@@ -372,24 +393,33 @@ class LookupService:
             else:
                 self._complete_routed("read", list(run), 0, ctx)
             return
-        lookup_fn, scan_for, version = ctx
+        lookup_fns, scan_for, version = ctx
         if kind == "scan":
             self._dispatch_scans(run, scan_for)
         else:
-            self._dispatch_reads(run, lookup_fn, version)
+            self._dispatch_reads(run, lookup_fns, version)
+
+    def _slice_gens(self, gen: Generation):
+        """The copy of ``gen`` each dispatcher slice reads, in slice
+        order."""
+        return [gen.on(d) for d in self.devices]
 
     def _pin_context(self):
-        """``(lookup_fn, m -> scan callable, version)`` bound to ONE
-        immutable generation.  With health on, ``lookup_fn`` is the
-        plan's INSTRUMENTED lookup; ``version`` routes its stats to the
-        right record.  Routed generations pin a `RoutedContext` instead
-        (the topology and every lane's callables)."""
+        """``(lookup callables, m -> scan callables, version)`` bound to
+        ONE immutable generation, one callable a slice of the data axis
+        (each over its device's replica).  With health on, the lookups
+        are the plan's INSTRUMENTED lookup; ``version`` routes their
+        stats to the right record.  Routed generations pin a
+        `RoutedContext` instead (the topology and every lane's
+        callables)."""
         gen = self.registry.current()
         if isinstance(gen, RoutedGeneration):
             return self._routed_context(gen)
-        if self.health is not None:
-            return gen.instrumented_fn(), gen.scan_fn, gen.version
-        return gen.fn, gen.scan_fn, gen.version
+        gens = self._slice_gens(gen)
+        fns = tuple(g.instrumented_fn() if self.health is not None
+                    else g.fn for g in gens)
+        return (fns, lambda m: tuple(g.scan_fn(m) for g in gens),
+                gen.version)
 
     def _routed_context(self, gen: RoutedGeneration) -> RoutedContext:
         """One executable-cache-addressable context per (generation,
@@ -403,14 +433,18 @@ class LookupService:
             return rctx
         lane_ctxs = []
         for s, sgen in enumerate(gen.shards):
-            read_fn = sgen.instrumented_fn() if instrumented else sgen.fn
-            scan_fn = (lambda m, s=s, g=gen: g.shard_scan_fn(s, int(m)))
-            lane_ctxs.append(tuple(
-                AsyncContext(key=(sgen.version, r), read_fn=read_fn,
-                             scan_fn=scan_fn, bind=(),
-                             sample_key=sgen.sample_key,
-                             instrumented=instrumented)
-                for r in range(len(self.dispatcher.lanes[s]))))
+            ctxs = []
+            for r, lane in enumerate(self.dispatcher.lanes[s]):
+                lgen = sgen.on(lane.device)     # the lane's card's copy
+                ctxs.append(AsyncContext(
+                    key=(sgen.version, r),
+                    read_fn=(lgen.instrumented_fn() if instrumented
+                             else lgen.fn),
+                    scan_fn=(lambda m, s=s, g=gen, d=lane.device:
+                             g.shard_scan_fn(s, int(m), d)),
+                    bind=(), sample_key=sgen.sample_key,
+                    instrumented=instrumented))
+            lane_ctxs.append(tuple(ctxs))
         rctx = RoutedContext(
             topology=gen.topology,
             lane_ctxs=tuple(lane_ctxs),
@@ -499,8 +533,9 @@ class LookupService:
             per_request=[(r.t_submit, r.keys.size, r.priority)
                          for r in group])
 
-    def _dispatch_reads(self, batch, lookup_fn, version: int = -1) -> None:
-        self._complete_run(batch, lambda: lookup_fn, version=version,
+    def _dispatch_reads(self, batch, lookup_fns,
+                        version: int = -1) -> None:
+        self._complete_run(batch, lambda: lookup_fns, version=version,
                            instrumented=self.health is not None)
 
     def _dispatch_scans(self, batch, scan_for) -> None:
@@ -512,22 +547,24 @@ class LookupService:
             self._complete_run(group, lambda m=m: scan_for(m))
 
     # -- async executor plumbing ------------------------------------------
-    def _async_context(self) -> AsyncContext:
-        """Pin one generation as an executable-cache-addressable context:
-        the async analogue of `_pin_context` (a hot swap lands between
-        batches, never inside one).  Routed generations return the
-        (cached) `RoutedContext`; the executor branches on the type."""
+    def _async_context(self):
+        """Pin one generation as executable-cache-addressable contexts,
+        one `AsyncContext` a slice of the data axis (a tuple, each over
+        its device's replica): the async analogue of `_pin_context` (a
+        hot swap lands between batches, never inside one).  Routed
+        generations return the (cached) `RoutedContext`; the executor
+        branches on the type."""
         gen = self.registry.current()
         if isinstance(gen, RoutedGeneration):
             return self._routed_context(gen)
         instrumented = self.health is not None
-        return AsyncContext(
+        return tuple(AsyncContext(
             key=(gen.version,),
-            read_fn=gen.instrumented_fn() if instrumented else gen.fn,
-            scan_fn=gen.scan_fn,
+            read_fn=g.instrumented_fn() if instrumented else g.fn,
+            scan_fn=g.scan_fn,
             bind=(),
             sample_key=gen.sample_key,
-            instrumented=instrumented)
+            instrumented=instrumented) for g in self._slice_gens(gen))
 
     def _async_work_items(self, batch):
         """Lazily yield `WorkItem`s for one taken batch, in admission
@@ -573,15 +610,22 @@ class LookupService:
         off-thread (`_on_publish`)."""
         if self._async is None:
             return 0
-        ctx = self._async_context()
-        if isinstance(ctx, RoutedContext):
-            return self._warm_routed(ctx)
-        buckets = self._resolved_warm_buckets()
+        ctxs = self._async_context()
+        if isinstance(ctxs, RoutedContext):
+            return self._warm_routed(ctxs)
+        disp = self.dispatcher
+        # the executables run on one slice of each padded bucket
+        buckets = tuple(b // disp.n_shards
+                        for b in self._resolved_warm_buckets())
+        n = 0
         with maybe_span(self.recorder, "warmup", cat="lifecycle",
-                        version=ctx.key[0], n_buckets=len(buckets)):
-            return self.exec_cache.warmup(
-                ctx, buckets, self.dispatcher,
-                scan_lengths=self.cfg.warm_scan_lengths)
+                        version=ctxs[0].key[0], n_buckets=len(buckets)):
+            # slices on one device share its replica, so its executables
+            for dev in distinct(disp.devices):
+                n += self.exec_cache.warmup(
+                    ctxs[disp.devices.index(dev)], buckets, dev,
+                    scan_lengths=self.cfg.warm_scan_lengths)
+        return n
 
     def warm_wait(self, timeout: Optional[float] = None) -> None:
         """Block until the background re-warm started by the last hot-swap
@@ -601,7 +645,7 @@ class LookupService:
                 for r, lane in enumerate(grp):
                     n += self.exec_cache.warmup(
                         rctx.lane_ctxs[s][r],
-                        self._resolved_warm_buckets(lane), lane,
+                        self._resolved_warm_buckets(lane), lane.device,
                         scan_lengths=self.cfg.warm_scan_lengths)
         return n
 
@@ -616,7 +660,7 @@ class LookupService:
         if isinstance(gen, RoutedGeneration):
             if not isinstance(self.dispatcher, RoutedDispatcher):
                 self.dispatcher = RoutedDispatcher(
-                    gen.topology, devices=[self.registry.device],
+                    gen.topology, devices=self.devices,
                     pad_quantum=self.cfg.pad_quantum,
                     recorder=self.recorder)
             else:
@@ -663,6 +707,10 @@ class LookupService:
             masses.append(mass)
         topo = gen.topology.rebalanced_from_masses(
             masses, total_replicas=total_replicas)
+        # each shard's copies on its new lanes' devices, before any lane
+        # reads them
+        for sgen, grp in zip(gen.shards, self.registry.shard_devices(topo)):
+            sgen.place(grp)
         if self.dispatcher.set_replicas(topo):
             self._rctx_cache.clear()
         return topo.replicas

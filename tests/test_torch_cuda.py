@@ -430,7 +430,7 @@ def test_staging_buffer_reuse_under_in_flight_copies(card):
     outs = []
     for q in batches:
         torch.cuda._sleep(1_000_000)     # ~0.5 ms of stream time
-        qt, p = d.pad_and_place(q)
+        (qt,), p = d.pad_and_place(q)
         assert p == 4096
         outs.append(fn(qt))              # no wait between batches
     torch.cuda.synchronize()
@@ -521,7 +521,7 @@ def test_graph_replay_equals_eager_on_every_warmed_bucket(card, index, kind):
     rng = np.random.default_rng(11)
     for bucket in (128, 256, 512, 1024, 2048, 4096):
         exe = cache.get(ctx, cell, 16 if cell == "scan" else 0, bucket,
-                        lambda: fn, d, warm=True)
+                        lambda: fn, d.device, warm=True)
         assert isinstance(exe, GraphExecutable)
         assert exe.captured == {"rmi_lookup": int(kernel == "rmi_lookup"),
                                 "rmi_bounds": 0,
@@ -530,9 +530,10 @@ def test_graph_replay_equals_eager_on_every_warmed_bucket(card, index, kind):
         m = int(rng.integers(bucket // 2 + 1, bucket + 1))
         q = sosd.make_queries(keys, m, seed=bucket)
         args = ((m,) if instr else ()) + bind
-        got = d.complete(d.launch(exe, q, args, {}, instrumented=instr,
-                                  stream=stream))
-        qt, p = d.pad_and_place(q)
+        got = d.complete(d.launch((exe,), q, (bind,), ({},),
+                                  instrumented=instr,
+                                  streams={d.device: stream}))
+        (qt,), p = d.pad_and_place(q)
         assert p == bucket
         want = d.finalize(fn(qt, *args), m, instrumented=instr)
         for g, w in zip(got if isinstance(got, tuple) else (got,),
@@ -1370,3 +1371,147 @@ def test_driver_on_two_cards_equals_one(two_cards, tmp_path):
     one, two, half = run(1, 8), run(2, 8), run(1, 4)
     assert rel(two, one) <= 2e-3, (two, one)
     assert rel(half, one) > 2e-3, (half, one)
+
+
+# ---------------------------------------------------------------------------
+# lookup serving over several cards
+# ---------------------------------------------------------------------------
+def _serve_cards(keys, q, devices, executor="async"):
+    """Answers and health record of the RMI service over ``devices``."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=default_spec("rmi", backend="cuda"), executor=executor,
+        max_batch=1024, warm_buckets=(256, 1024)), devices=devices)
+    with svc:
+        futs = [svc.submit(q[i:i + 300]) for i in range(0, q.size, 300)]
+        got = np.concatenate([f.result(60) for f in futs])
+    return svc, got, svc.health.current()
+
+
+@pytest.mark.parametrize("executor", ["sync", "async"])
+def test_broadcast_over_one_card_twice_equals_one_card(card, executor):
+    """Two slices of every batch on the one card: exact, and the health
+    record of the split run is the one-card record."""
+    keys = sosd.generate("osm", 300_000, seed=1)
+    q = sosd.make_queries(keys, 6_000, seed=2)
+    _, one, r1 = _serve_cards(keys, q, ["cuda:0"], executor)
+    svc, two, r2 = _serve_cards(keys, q, ["cuda:0", "cuda:0"], executor)
+    assert svc.dispatcher.n_shards == 2
+    np.testing.assert_array_equal(one, np.searchsorted(keys, q))
+    np.testing.assert_array_equal(two, one)
+    for f in ("n", "disp_sum", "disp_max", "width_sum", "steps_sum"):
+        assert getattr(r2, f) == getattr(r1, f), f
+    np.testing.assert_array_equal(r2.traffic_total, r1.traffic_total)
+
+
+def test_broadcast_over_two_cards_is_exact(two_cards):
+    """Slices on cuda:0 and cuda:1, each over its card's replica: exact,
+    every card launches the fused kernel, and card 1's replica answers a
+    batch bit for bit as card 0's does."""
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    keys = sosd.generate("osm", 300_000, seed=1)
+    q = sosd.make_queries(keys, 6_000, seed=2)
+    before = dict(rmi_kernel.launch_lookup.by_device)
+    svc, got, _ = _serve_cards(keys, q, [c0, c1])
+    np.testing.assert_array_equal(got, np.searchsorted(keys, q))
+    by_card = svc.exec_cache.graph_launches_by_device()
+    assert by_card["cuda:0"]["rmi_lookup"] > 0
+    assert by_card["cuda:1"]["rmi_lookup"] > 0
+    assert rmi_kernel.launch_lookup.by_device["cuda:1"] > \
+        before.get("cuda:1", 0)
+    gen = svc.generation
+    g1 = gen.on(c1)
+    assert g1.data.device == c1 and g1.version == gen.version
+    assert g1.plan._cache["_rmi_f32_state"].a2.device == c1
+    a = gen.fn(encode_keys(q, c0)).cpu()
+    b = g1.fn(encode_keys(q, c1)).cpu()
+    assert torch.equal(a, b)
+
+
+def test_graph_captured_on_card1_from_a_card0_thread(two_cards):
+    """A graph of a plan on cuda:1, captured and replayed from a thread
+    whose current device is cuda:0, replays to the eager answers."""
+    from repro_torch.serve.lookup.executor import GraphExecutable
+
+    c1 = torch.device("cuda", 1)
+    keys = sosd.generate("wiki", 200_000, seed=1)
+    b = spec.build(spec.IndexSpec("pgm", {"eps": 64}), keys, device=c1)
+    fn = plan.lower(b, encode_keys(keys, c1)).compile("cuda")
+    q = encode_keys(sosd.make_queries(keys, 1024, seed=3), c1)
+    out = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        exe = GraphExecutable(fn, 1024, (), False, c1)
+        got = exe(q).clone()
+        torch.cuda.synchronize(c1)
+        out["got"] = got
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert out["got"].device == c1
+    assert torch.equal(out["got"], fn(q))
+
+
+def test_kernel_launch_on_card1_from_card0(two_cards):
+    """Both kernels launch on cuda:1 while cuda:0 is current, and count
+    the launch on cuda:1."""
+    c1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    keys = sosd.generate("osm", 200_000, seed=5)
+    q = sosd.make_queries(keys, 5_000, seed=6)
+    d, qt = encode_keys(keys, c1), encode_keys(q, c1)
+    lb = np.searchsorted(keys, q)
+    n1 = bs_kernel.launch.by_device.get("cuda:1", 0)
+    lo = torch.from_numpy(np.maximum(lb - 3, 0)).to(c1)
+    got = lower_bound_windows(d, qt, lo, 8)
+    assert bs_kernel.launch.by_device["cuda:1"] == n1 + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), lb)
+    st = ops.prepare_f32_state(keys, branching=4096, device=c1)
+    m1 = rmi_kernel.launch_lookup.by_device.get("cuda:1", 0)
+    np.testing.assert_array_equal(ops.rmi_lookup(st, d, qt).cpu().numpy(),
+                                  lb)
+    assert rmi_kernel.launch_lookup.by_device["cuda:1"] == m1 + 1
+    assert torch.cuda.current_device() == 0
+
+
+def test_a_stalled_batch_on_card1_keeps_its_swapped_out_replica(two_cards):
+    """`test_a_stalled_batch_keeps_its_swapped_out_generation` over two
+    cards: the batch's slice on cuda:1 stalls behind ~0.5 s of device
+    sleep on the executor's cuda:1 stream while v2 is published; v1's
+    cuda:1 replica stays alive until the batch completes, and the batch
+    answers from v1."""
+    from repro_torch.serve.lookup import (LookupService, LookupServiceConfig,
+                                          default_spec)
+
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    keys = sosd.generate("osm", 300_000, seed=1)
+    other = sosd.generate("wiki", 300_000, seed=2)
+    sp = default_spec("rmi", backend="cuda")
+    svc = LookupService(keys, LookupServiceConfig(
+        spec=sp, executor="async", warm_buckets=(4096,)), devices=[c0, c1])
+    v2 = svc.registry.make_generation(spec.build(sp, other, device=c0),
+                                      encode_keys(other, c0),
+                                      backend="cuda", spec=sp)
+    svc.warm_now()
+    v1_data = weakref.ref(svc.generation.on(c1).data)
+    ex = svc._async
+    q = sosd.make_queries(keys, 4000, seed=5)
+    with torch.cuda.stream(ex.streams[c1]):
+        torch.cuda._sleep(1_000_000_000)
+    fut = svc.submit(q)
+    ex._drain_launches()                 # launched, not completed
+    svc.registry.publish_prebuilt(v2)
+    del v2
+    gc.collect()
+    assert v1_data() is not None
+    with torch.cuda.device(c1):
+        junk = _scribble(c1)
+    ex._complete_ring_inline()
+    np.testing.assert_array_equal(fut.result(0), np.searchsorted(keys, q))
+    assert svc.lookup(q[:100]).tolist() == \
+        np.searchsorted(other, q[:100]).tolist()
+    del junk

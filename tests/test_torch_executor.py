@@ -248,7 +248,7 @@ def test_stress_mutable_concurrent_writers_bracketed(cell):
 
 def _slow(svc, bucket, delay):
     """Wrap the warmed read executable of ``bucket`` in a sleep."""
-    ckey = ((svc.generation.version,), "read", 0, bucket)
+    ckey = ((svc.generation.version,), "read", 0, bucket, svc.devices[0])
     real = svc.exec_cache._exes[ckey]
     svc.exec_cache._exes[ckey] = lambda *a: (time.sleep(delay), real(*a))[1]
     return ckey, real
@@ -413,7 +413,7 @@ def test_executable_cache_unit_semantics():
     cache = ExecutableCache()
     ctx = type("C", (), {})()
     ctx.key, ctx.bind, ctx.instrumented = (7,), (), False
-    disp = type("D", (), {"device": __import__("torch").device("cpu")})()
+    disp = __import__("torch").device("cpu")    # the executables' device
     fn = lambda q: q                # noqa: E731 — a plain callable
     assert cache.get(ctx, "read", 0, 128, lambda: fn, disp, warm=True) is fn
     assert cache.counters() == (0, 0)       # warm never counts hit/miss
@@ -505,7 +505,7 @@ def test_completion_failure_fails_only_that_slot(cell):
     svc = _svc(keys, "async", max_batch=64)
     with svc:
         ckey = ((svc.generation.version,), "read", 0,
-                svc.dispatcher.padded_size(64))
+                svc.dispatcher.padded_size(64), svc.devices[0])
         real = svc.exec_cache._exes[ckey]
         svc.exec_cache._exes[ckey] = lambda *a: None   # completion chokes
         bad = svc.submit(q[:64])

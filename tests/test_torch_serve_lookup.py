@@ -215,7 +215,7 @@ def test_staging_buffer_never_aliases_a_placed_batch():
                             dtype=np.uint64) for _ in range(8)]
     placed = [d.pad_and_place(q) for q in batches]
     assert d.staging_allocs == 1 and d.staging_hits == 7
-    for q, (qt, p) in zip(batches, placed):
+    for q, ((qt,), p) in zip(batches, placed):
         assert p == 512 and qt.dtype == torch.int64
         want = np.concatenate([q, np.full(p - q.size, q[0], np.uint64)])
         assert torch.equal(qt, encode_keys(want, CPU))
@@ -333,8 +333,8 @@ def test_health_off_reads_the_plain_lookup_and_reports_zeros():
     off = LookupService(keys, LookupServiceConfig(index="pgm", health=False),
                         device=CPU)
     assert off.health is None and off.registry.health_records() == []
-    lookup_fn, _, _ = off._pin_context()
-    assert lookup_fn is off.generation.fn
+    lookup_fns, _, _ = off._pin_context()
+    assert lookup_fns == (off.generation.fn,)
     np.testing.assert_array_equal(on.lookup(q), off.lookup(q))
     snap = off.health_snapshot()
     assert "health_n" not in snap and snap["serving"] == 0.0
