@@ -100,11 +100,13 @@ the uninterrupted run (``train_resume``), and one float32 step of every
 config's smoke width, the card against the CPU (``train_smoke``).  Then
 data parallelism over NCCL at a world of every card: granite-3-2b at its
 full width through the train driver's dist path (``dist_train``: one
-rank a card, each holding the whole model and its block of every
-gradient and moment as the sharding rules place them; 6 steps at the
+rank a card, each storing its block of every parameter, gradient and
+moment as the sharding rules place them and gathering one unit of the
+model at a time; 6 steps at the
 lower lr with remat "none", whose losses and grad norms are held against
 the ``train`` phase's run at the same settings, bit for bit or within
-1e-5, with step p50, tokens/s and each rank's peak memory), and the int8
+1e-5, with step p50, tokens/s and each rank's peak memory beside the
+state bytes the dry run reckons a card), and the int8
 compressed all-reduce and the GPipe
 schedule against their plain counterparts (``dist_collectives``, one
 process a rank).  Last the serve driver ``python -m repro_torch.launch.serve --mode lookup
@@ -117,10 +119,14 @@ with a checkpoint and a resume, at its smoke width (``driver``).
 One JSON line per phase; any failure exits nonzero.  The last line is the
 device summary ``{"ok": true, "device": {...}}``.  Full results go to
 ``--out``.  ``--only dist`` runs the device, build and dist phases alone
-on several cards (``dist_train`` at one rank, at every card and on one
-rank with a card's share of the batch: the second's losses and grad
-norms held against the first's within limits that the third must fail)
-and prints no ``kernels`` line.  ``--only cards`` runs the device, build
+on several cards (``dist_train`` at one rank, at every card, at two
+cards when there are more, and on one rank with a card's share of the
+batch: the multi-card runs' losses and grad norms held against one
+rank's within limits that the last must fail;
+then ``dist_train_moe``: deepseek-moe-16b at its full width on four
+cards, fewer fail, with the same driver flags: every rank exits 0 with
+finite losses and grad norms, every rank's losses equal, every card's
+peak under its 80 GB) and prints no ``kernels`` line.  ``--only cards`` runs the device, build
 and cards phases alone on four cards (fewer fail): the lookup service
 over 1, 2 and 4 cards on the amzn cell (``cards_replicas``: each card's
 replica of the RMI generation against the first card's, bit for bit;
@@ -144,6 +150,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -332,6 +339,10 @@ DRIVER_WAVES = (("default", "metrics_jsonl", "sync", "routed", "autotune",
 #: against that run's first DIST_STEPS (the warm-up is 10 steps, so their
 #: lr does not depend on the run's length)
 DIST_STEPS = 6
+#: `dist_train_moe` (``--only dist``): the train driver at this arch's
+#: full width (16.4 B parameters, 32.76 GB of bf16 weights) on
+#: DIST_MOE_WORLD cards, the flags `dist_train`'s
+DIST_MOE_ARCH, DIST_MOE_WORLD = "deepseek-moe-16b", 4
 #: one rank must repeat the one-device path's losses and grad norms bit
 #: for bit or to train_check's 1e-5.  Across ranks bf16 products over
 #: another split of the batch round otherwise: every loss and grad norm
@@ -3080,21 +3091,41 @@ def _run_world(cmds, timeout: float):
     return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
 
 
-def _dist_train_run(world: int, seed: int,
-                    batch: int = TRAIN_BATCH) -> dict:
-    """The train driver at granite-3-2b's full width on ``world`` ranks
-    (one a card, NCCL over ``tcp://127.0.0.1``), DIST_STEPS steps at
+def _reckoned_state_bytes(arch: str, world: int) -> dict:
+    """What the dry run places on one card of an (world, 1) mesh: the
+    parameters, both float32 moments and the float32 gradient blocks."""
+    from repro_torch.configs import get
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.dryrun import MeshShape, device_bytes
+    from repro_torch.models import model as M
+
+    cfg = get(arch)
+    named = dict(M.init_params(cfg, device="meta").named_parameters())
+    mesh = MeshShape((world, 1), ("data", "model"))
+    specs = M.param_specs(cfg)
+    params = device_bytes(named, specs, mesh, SH.PARAM_RULES)
+    f32 = device_bytes({n: p.float() for n, p in named.items()}, specs,
+                       mesh, SH.PARAM_RULES)
+    return {"params": params, "moments": 2 * f32, "grad_blocks": f32,
+            "total": params + 3 * f32}
+
+
+def _dist_train_run(world: int, seed: int, batch: int = TRAIN_BATCH,
+                    arch: str = TRAIN_ARCH) -> dict:
+    """The train driver at ``arch``'s full width on ``world`` ranks (one a
+    card, NCCL over ``tcp://127.0.0.1``), DIST_STEPS steps at
     TRAIN_LR_FALLS with remat "none" from weights drawn from ``seed``, at
-    global batch ``batch``; its metrics file."""
+    global batch ``batch``; its metrics file, with the parameter bytes a
+    rank printed it stores and what the dry run reckons a card holds."""
     out = os.path.join(ROOT, "chiprun_out",
-                       f"dist_train_w{world}_b{batch}.json")
+                       f"dist_train_{arch}_w{world}_b{batch}.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.remove(out)
     url = f"tcp://127.0.0.1:{_free_port()}"
     t0 = time.perf_counter()
     res = _run_world([[sys.executable, "-m", "repro_torch.launch.train",
-                       "--arch", TRAIN_ARCH, "--steps", str(DIST_STEPS),
+                       "--arch", arch, "--steps", str(DIST_STEPS),
                        "--lr", str(TRAIN_LR_FALLS), "--remat", "none",
                        "--seed", str(seed), "--global-batch", str(batch),
                        "--dist-init", url, "--rank", str(r),
@@ -3109,11 +3140,21 @@ def _dist_train_run(world: int, seed: int,
     import numpy as np
     steady = np.array(rec["step_s"][1:]) * 1e3
     p50 = float(np.percentile(steady, 50))
-    rec.update(wall_s=wall, summary=res[0][1].splitlines(),
+    summary = res[0][1].splitlines()
+    stored = re.search(r"([\d,]+) parameter bytes a rank", summary[0])
+    check(stored is not None, f"dist_train: no stored bytes in {summary[0]}")
+    rec.update(wall_s=wall, summary=summary,
                step_ms_p50=p50, step_ms_p99=float(np.percentile(steady, 99)),
                first_step_ms=rec["step_s"][0] * 1e3,
                global_batch=batch,
-               tokens_per_s=batch * TRAIN_SEQ / (p50 / 1e3))
+               tokens_per_s=batch * TRAIN_SEQ / (p50 / 1e3),
+               param_bytes_a_rank=int(stored.group(1).replace(",", "")),
+               reckoned_bytes_a_card=_reckoned_state_bytes(arch, world))
+    check(rec["param_bytes_a_rank"]
+          == rec["reckoned_bytes_a_card"]["params"],
+          f"dist_train ({arch}, {world} ranks): a rank stores "
+          f"{rec['param_bytes_a_rank']} parameter bytes, the dry run "
+          f"places {rec['reckoned_bytes_a_card']['params']}")
     check(all(np.isfinite(rec["loss"] + rec["grad_norm"])),
           f"dist_train ({world} ranks): a non-finite loss: {rec['loss']}")
     return rec
@@ -3145,9 +3186,10 @@ def phase_dist_train(log, world: int, seed: int, reference=None):
     lr and remat: its losses and grad norms), bit for bit or within
     train_check's 1e-5; with no reference and one card there is nothing
     to hold it against, and the phase fails.  On several cards every
-    card's run is held against the one rank's within DIST_LOSS_RTOL and
-    DIST_GNORM_RTOL, and a control (one rank on a world's share of the
-    batch) must fall outside them.  Records the losses and grad norms,
+    card's run (and, with more than two cards, a run on two) is held
+    against the one rank's within DIST_LOSS_RTOL and DIST_GNORM_RTOL,
+    and a control (one rank on a world's share of the batch) must fall
+    outside them.  Records the losses and grad norms,
     the agreements, step p50/p99 (host clock, each step ends in a
     synchronize), tokens/s and each rank's peak device memory."""
     check(reference is not None or world > 1,
@@ -3160,9 +3202,10 @@ def phase_dist_train(log, world: int, seed: int, reference=None):
     runs = {1: _dist_train_run(1, seed)}
     if reference is not None:
         runs[1]["agreement"] = _agreement(runs[1], reference)
+    for w in sorted({min(world, 2), world} - {1}):    # two, every card
+        runs[w] = _dist_train_run(w, seed)
+        runs[w]["agreement"] = _agreement(runs[w], runs[1])
     if world > 1:
-        runs[world] = _dist_train_run(world, seed)
-        runs[world]["agreement"] = _agreement(runs[world], runs[1])
         control = _dist_train_run(1, seed, TRAIN_BATCH // world)
         control["agreement"] = _agreement(control, runs[1])
         rec["control"] = control
@@ -3178,14 +3221,45 @@ def phase_dist_train(log, world: int, seed: int, reference=None):
         check(runs[1]["agreement"]["held"] is not None,
               f"dist_train at 1 rank is off the one-device path: "
               f"{runs[1]['agreement']}")
+    for w in sorted(runs)[1:]:
+        check(runs[w]["agreement"]["within_dist_limits"],
+              f"dist_train ({w} ranks) against 1 rank: "
+              f"{runs[w]['agreement']}")
     if world > 1:
-        check(main["agreement"]["within_dist_limits"],
-              f"dist_train ({world} ranks) against 1 rank: "
-              f"{main['agreement']}")
         check(not rec["control"]["agreement"]["within_dist_limits"],
               f"dist_train: the control on 1/{world} of the batch passes "
               f"the limits, which then show nothing: "
               f"{rec['control']['agreement']}")
+    return rec
+
+
+def phase_dist_train_moe(log, world: int, seed: int):
+    """deepseek-moe-16b at its full width (28 layers, 16.4 B parameters)
+    through the train driver's dist path on DIST_MOE_WORLD cards, the
+    flags of `dist_train`: every rank exits 0 with finite losses and grad
+    norms, every rank's losses are rank 0's, and every card's peak device
+    memory stays under its 80 GB; recorded beside the state bytes the dry
+    run reckons a card holds.  Fewer cards fail."""
+    from repro_torch.launch.dryrun import DEVICE_BYTES
+
+    check(world >= DIST_MOE_WORLD,
+          f"dist_train_moe needs {DIST_MOE_WORLD} cards, {world} visible")
+    run = _dist_train_run(DIST_MOE_WORLD, seed, arch=DIST_MOE_ARCH)
+    rec = {"phase": "dist_train_moe", "arch": DIST_MOE_ARCH,
+           "steps": DIST_STEPS, "lr": TRAIN_LR_FALLS, "remat": "none",
+           "seq_len": TRAIN_SEQ, "seed": seed,
+           "card_bytes": DEVICE_BYTES, **run}
+    emit(rec, log)
+    check(run["summary"][0].startswith(
+        f"data parallel: {DIST_MOE_WORLD} rank(s) over nccl"),
+        f"dist_train_moe did not run {DIST_MOE_WORLD} NCCL ranks: "
+        f"{run['summary'][:1]}")
+    check(all(r == run["loss"] for r in run["loss_by_rank"]),
+          f"dist_train_moe: the ranks' losses differ: {run['loss_by_rank']}")
+    check(all(p is not None and p * 1e9 < DEVICE_BYTES
+              for p in run["peak_mem_gb"]),
+          f"dist_train_moe: a card's peak passes 80 GB: "
+          f"{run['peak_mem_gb']}")
     return rec
 
 
@@ -3486,6 +3560,8 @@ def main(argv=None) -> int:
         return 0
     if args.only == "dist":
         dist_out = {"dist_train": phase_dist_train(log, world, args.seed),
+                    "dist_train_moe": phase_dist_train_moe(log, world,
+                                                           args.seed),
                     "dist_collectives": phase_dist_collectives(log, world,
                                                                args.seed)}
         _write(args.out, {"card": smi, "only": "dist", "dist": dist_out,

@@ -104,16 +104,18 @@ class _Context(threading.local):
         self.act_rules: Optional[Rules] = None
         self.param_rules: Optional[Rules] = None
         self.data_group = None
+        self.params = None
 
 
 _CTX = _Context()
+_FIELDS = ("mesh", "act_rules", "param_rules", "data_group", "params")
 
 
 def context():
     """The calling thread's context, for `in_context` to install on
     another thread: autograd recomputes a `remat` block on a thread of its
     own (the CUDA engine's device thread), where this thread's is not."""
-    return (_CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.data_group)
+    return tuple(getattr(_CTX, f) for f in _FIELDS)
 
 
 @contextlib.contextmanager
@@ -121,11 +123,13 @@ def in_context(saved):
     """Install a context that `context` returned; the previous one is
     restored on exit."""
     prev = context()
-    _CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.data_group = saved
+    for f, v in zip(_FIELDS, saved):
+        setattr(_CTX, f, v)
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.act_rules, _CTX.param_rules, _CTX.data_group = prev
+        for f, v in zip(_FIELDS, prev):
+            setattr(_CTX, f, v)
 
 
 def axis_rules(mesh, act_rules: Optional[Rules] = None,
@@ -136,15 +140,36 @@ def axis_rules(mesh, act_rules: Optional[Rules] = None,
     return in_context((mesh,
                        ACT_RULES if act_rules is None else act_rules,
                        PARAM_RULES if param_rules is None else param_rules,
-                       _CTX.data_group))
+                       _CTX.data_group, _CTX.params))
 
 
-def local_shard(group):
+def local_shard(group, params=None):
     """Run model code on one data-parallel rank's slice of the batch, as
     plain local tensors: no mesh (the slice is one MoE dispatch group;
     `logical_constraint` is the identity), and `batch_mean` averages over
-    ``group``, the ranks of the ``data`` dim."""
-    return in_context((None, _CTX.act_rules, _CTX.param_rules, group))
+    ``group``, the ranks of the ``data`` dim.  ``params`` is the step's
+    parameter store, which `gathered` asks for each unit's parameters
+    (`repro_torch.train.train_step.DataParallel`)."""
+    return in_context((None, _CTX.act_rules, _CTX.param_rules, group,
+                       params))
+
+
+def gathered(modules, fn, saved: bool = True):
+    """``fn`` run with the parameters of ``modules`` (a unit of the model)
+    whole: the context's parameter store gathers the ones it holds in
+    blocks before ``fn`` and frees them after it, and gathers them again
+    for the backward (``saved``: autograd saves what ``fn`` uses, so the
+    store packs the gathered weights it saves and gathers them again at
+    the first unpack; under `remat` the recomputation runs this again).
+    With no store, ``fn`` itself.  The store is read when the function
+    runs, from the context that travels into a recomputation."""
+    def run(*args):
+        store = _CTX.params
+        if store is None:
+            return fn(*args)
+        return store.run_unit(modules, fn, saved, args)
+
+    return run
 
 
 def batch_mean(t):

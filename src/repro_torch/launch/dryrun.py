@@ -23,6 +23,15 @@ config's depth; the encdec family is counted whole.  Every family's
 forward runs on ``meta`` (``flops_by`` says "flop_counter"); a cell whose
 forward fails there is a ``fail`` row.
 
+The port's data-parallel step stores what these specs place: on the
+train driver's ``(n, 1)`` mesh a rank of `train_step.DataParallel` holds
+exactly ``device_bytes`` of the parameters (its block of each one the
+rules shard, the others whole) and twice that of their float32 analogue
+in moments (FSDP storage, as the reference's driver places its
+parameters).  A step adds the float32 gradient blocks, one unit's
+gathered weights at a time and the activations, which the dry run does
+not count.
+
 What it does not give: the reference's collective bytes (parsed from
 XLA's HLO by ``benchmarks/hlo_cost.py``) and its temporaries; the port
 has no partitioner to ask.

@@ -20,17 +20,19 @@ explicit ``tcp://host:port`` or ``file:///path``), or under torchrun
 is one rank of a process group, NCCL on the CUDA cards (rank R on card
 ``LOCAL_RANK``, else R modulo the card count) and gloo on the CPU.  The
 ranks form an ``(N, 1)`` ("data", "model") mesh (`launch/mesh.py`); each
-keeps the whole model and, for every parameter, the block of its
-gradient and of both moments that the config's parameter rules place on
-it (`repro_torch.dist.sharding`; ZeRO-style sharding, not FSDP storage),
-takes its host slice of the global batch and runs
-`train_step.DataParallel`'s step.
-Rank 0 prints and writes the checkpoints, in the one-device format (full
-tensors), so a run of N ranks resumes from a run of any other count.
-Without those flags the driver runs one process on one device, as
-before.  ``--metrics-out FILE`` writes every step's loss, grad norm and
-seconds (each step ends in a synchronize) and each rank's peak device
-memory as JSON.
+stores, for every parameter, the block of it and of both moments that
+the config's parameter rules place on it (`repro_torch.dist.sharding`;
+FSDP storage, as the reference's driver places its parameters), takes
+its host slice of the global batch and runs `train_step.DataParallel`'s
+step, which gathers one unit of the model at a time.  Rank 0 prints
+(the first line: the ranks, the mesh, the sharded parameters and the
+parameter bytes a rank stores) and writes the checkpoints, in the
+one-device format (full tensors, gathered to its host), so a run of N
+ranks resumes from a run of any other count.  Without those flags the
+driver runs one process on one device, as before.  ``--metrics-out
+FILE`` writes every step's loss, grad norm and seconds (each step ends
+in a synchronize), each rank's peak device memory and each rank's
+losses as JSON.
 
 The token pipeline yields no ``frames``, so the encdec family
 (whisper-tiny) is refused with exit code 2 (the reference's driver dies
@@ -136,7 +138,7 @@ def main(argv=None) -> None:
     from repro_torch.train import checkpoint as CK
     from repro_torch.train import fault_tolerance as FT
     from repro_torch.train import train_step as TS
-    from repro_torch.train.optimizer import AdamW, AdamWState, cosine_schedule
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
 
     if args.arch not in ARCHS:
         ap.error(f"unknown --arch {args.arch!r}; known: {sorted(ARCHS)}")
@@ -178,12 +180,13 @@ def main(argv=None) -> None:
         mesh = make_mesh((world, 1), ("data", "model"))
         # the config's parameter rules (`sharding.select_rules`)
         dp = TS.DataParallel(cfg, opt, mesh, args.microbatches)
-        # moments only for this rank's blocks: never the whole state
+        # the whole model once, then only this rank's blocks and moments
         state = dp.init(M.init_params(cfg, seed=args.seed, device=dev))
         say(f"data parallel: {world} rank(s) over "
             f"{torch.distributed.get_backend()}, mesh ({world}, 1) "
             f"('data', 'model'), {sum(d is not None for d in dp.dims)} of "
-            f"{len(dp.dims)} parameters sharded", flush=True)
+            f"{len(dp.dims)} parameters sharded, "
+            f"{dp.param_bytes(state):,} parameter bytes a rank", flush=True)
         step_fn = dp.step
     start = 0
     if args.resume and args.ckpt_dir:
@@ -191,13 +194,9 @@ def main(argv=None) -> None:
         if latest is not None:
             if dp is None:
                 state = CK.restore(args.ckpt_dir, latest, state)
-            else:   # whole moments on the host, then this rank's blocks
-                full = [torch.empty(p.shape, dtype=torch.float32)
-                        for p in state.params.parameters()]
-                like = TS.TrainState(state.params, AdamWState(
-                    torch.zeros((), dtype=torch.int32), full,
-                    [torch.empty_like(t) for t in full]))
-                dp.load(state, CK.restore(args.ckpt_dir, latest, like))
+            else:   # the whole state on the host, then this rank's blocks
+                dp.load(state, CK.restore(args.ckpt_dir, latest,
+                                          dp.host_state()))
             start = latest + 1
             say(f"resumed from step {latest}")
     ckpt_thread = metrics = None
@@ -242,15 +241,17 @@ def main(argv=None) -> None:
     if args.metrics_out:
         peak = [torch.cuda.max_memory_allocated(dev) / 1e9
                 if dev.type == "cuda" else None]
+        losses = [record["loss"]]
         if dp is not None:
-            peaks = [None] * world
+            peaks, losses = [None] * world, [None] * world
             torch.distributed.all_gather_object(peaks, peak[0])
+            torch.distributed.all_gather_object(losses, record["loss"])
             peak = peaks
         if rank == 0:
             with open(args.metrics_out, "w") as f:
                 json.dump(dict(record, arch=cfg.name, world=world,
                                device=str(dev), remat=cfg.remat,
-                               peak_mem_gb=peak), f)
+                               peak_mem_gb=peak, loss_by_rank=losses), f)
     if metrics is not None:
         say(f"done: final loss {float(metrics['loss']):.4f}")
     if dist_spec is not None:

@@ -5,8 +5,9 @@ block's ``nn.ParameterDict``), keyed as the reference's parameter tree
 is (`repro.models.layers`).  Layouts are the reference's: activations
 ``[B, S, d]``, attention weights ``[d, heads, head_dim]``, caches ``[B,
 S_max, n_kv, head_dim]``.  The reference's sharding annotations have no
-counterpart here: a data-parallel rank runs these layers on its local
-tensors (`repro_torch.train.train_step.DataParallel`).
+counterpart here: a data-parallel rank runs these layers on its slice of
+the batch, with the parameters of the unit that calls them gathered whole
+for the call (`repro_torch.train.train_step.DataParallel`).
 
 Attention is the reference's flash-style online softmax over KV chunks,
 with the whole query axis at once, in plain torch: the reference computes

@@ -378,26 +378,38 @@ class Decoder(nn.Module):
 def decoder_forward(cfg: ModelConfig, params: Decoder, tokens,
                     causal: bool = True):
     """tokens [B, S] -> (logits [B, S, V], aux loss, a float32 scalar:
-    the MoE layers' sum).  Each scanned unit is one `remat` unit."""
+    the MoE layers' sum).  Each scanned unit is one `remat` unit.
+
+    The units of a data-parallel step's parameter gathers
+    (`sharding.gathered`) are each prologue block, each scanned unit
+    (inside its `remat`, so that a recomputation gathers again) and the
+    embedding with ``final_norm``, used at both ends."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = L.embed(cfg, params.embed, tokens)
+    ends = [params.embed, params.final_norm]
+    x = SH.gathered(ends, L.embed)(cfg, params.embed, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in params.pro:
-        x, aux = blk(cfg, x, positions, aux, causal)
+        x, aux = SH.gathered([blk], blk)(cfg, x, positions, aux, causal)
     u = params.unit_len
 
     def unit(i):
+        blocks = params.blocks[i * u:(i + 1) * u]
+
         def body(x, aux):
-            for blk in params.blocks[i * u:(i + 1) * u]:
+            for blk in blocks:
                 x, aux = blk(cfg, x, positions, aux, causal)
             return x, aux
-        return remat(cfg.remat, body)
+        return remat(cfg.remat, SH.gathered(blocks, body,
+                                            saved=cfg.remat == "none"))
 
     for i in range(len(params.blocks) // u):
         x, aux = unit(i)(x, aux)
-    x = L.norm(cfg, x, params.final_norm)
-    return L.unembed(cfg, params.embed, x), aux
+
+    def head(x):
+        return L.unembed(cfg, params.embed, L.norm(cfg, x, params.final_norm))
+
+    return SH.gathered(ends, head)(x), aux
 
 
 def init_cache_shapes(cfg: ModelConfig, batch: int, s_max: int):

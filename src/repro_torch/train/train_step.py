@@ -7,28 +7,34 @@ along its first axis and the per-microbatch mean losses and gradients are
 summed in float32, then divided by the count, as the reference's scan
 does.
 
-Data parallel (`DataParallel`): ZeRO-style sharding of the moments and
-the gradients, not FSDP storage.  Each rank of the ``data`` dim of an
-``(n, 1)`` mesh holds its slice of the global batch, the whole model,
-and, for every parameter, the block that
-`repro_torch.dist.sharding.resolve_spec` places on it under the
-parameter rules (a view of the parameter) with that block's AdamW
-moments; a parameter the rules do not shard over ``data`` is whole on
-every rank.  A step all-gathers the other ranks' blocks into the model,
-runs the forward and backward on the rank's batch, reduce-scatters the
-gradients (in float32) to the blocks, reduces the squared gradient norm
-over every rank, and updates the local blocks.  The collectives go in
-buckets of many parameters.  The loss divides by the unmasked labels of
-every rank's batch (all-reduced first), and each rank adds 1/n of the
-MoE aux loss, whose dispatch fractions are the global batch's
+Data parallel (`DataParallel`): FSDP storage, as the reference's train
+driver places its parameters (``shard_tree(param_specs)`` under the
+parameter rules).  Each rank of the ``data`` dim of an ``(n, 1)`` mesh
+holds its slice of the global batch and, for every parameter, the block
+that `repro_torch.dist.sharding.resolve_spec` places on it, with that
+block's AdamW moments; the model's full-shape parameter holds no storage.
+A parameter the rules leave whole (the embedding, the norms) is whole on
+every rank.  The forward gathers one unit at a time (`sharding.gathered`:
+a prologue block, a scanned unit, the embedding with the final norm): one
+all-gather before the unit runs, freed after it.  The backward gathers
+the unit again (at the first unpack of a weight the forward saved, or in
+`remat`'s recomputation) and, once every gradient of the unit exists,
+reduce-scatters them in float32 into this rank's blocks, one collective a
+unit.  Whole parameters' gradients are all-reduced after the backward;
+the squared gradient norm is summed over every rank, and each rank
+updates its blocks.  The loss divides by the unmasked labels of every
+rank's batch (all-reduced first), and each rank adds 1/n of the MoE aux
+loss, whose dispatch fractions are the global batch's
 (`sharding.local_shard`, carried into a `remat` recomputation), so the
 ranks' losses sum to the global batch's.  A rank's tokens are one MoE
 dispatch group, so n ranks equal one device run with n groups.  At one
-rank every value equals the one-device step's bit for bit.
+rank nothing is sharded and every value equals the one-device step's bit
+for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, List, Optional
 
 import torch
@@ -47,11 +53,12 @@ class TrainState:
 
 
 def _loss_and_grads(cfg: ModelConfig, params, batch, microbatches: int,
-                    counts=None, aux_scale: float = 1.0):
+                    counts=None, aux_scale: float = 1.0, inputs=None):
     """The batch's loss and gradients (microbatches accumulated in
-    float32); ``counts[i]`` is microbatch i's unmasked-label count (None:
-    its own)."""
-    ps = list(params.parameters())
+    float32) with respect to ``inputs`` (default: every parameter);
+    ``counts[i]`` is microbatch i's unmasked-label count (None: its
+    own)."""
+    ps = list(params.parameters() if inputs is None else inputs)
 
     def grads_of(b, count):
         loss = M.loss_fn(cfg, params, b, count, aux_scale)
@@ -101,31 +108,85 @@ def make_eval_step(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # data parallel
 # ---------------------------------------------------------------------------
-#: a bucket of the data-parallel step's collectives closes once it holds
-#: this many parameter elements (a larger parameter is a bucket alone)
-BUCKET_NUMEL = 1 << 26
-
-
 @dataclasses.dataclass
 class ShardedTrainState:
-    """A data-parallel rank's state: ``params`` is the full-shape model,
-    whole on every rank; ``shards[i]`` is parameter i's local block, a
-    view of it (the parameter itself where it is not sharded); ``opt``
+    """A data-parallel rank's state: ``params`` is the model, whose
+    sharded parameters keep their full shape but hold no storage outside
+    a step; ``shards[i]`` is parameter i's block on this rank (its own
+    tensor), or the parameter itself where it is not sharded; ``opt``
     holds the moments of those blocks."""
     params: Any
     opt: AdamWState
     shards: List[torch.Tensor]
 
 
+class _Unshard(torch.autograd.Function):
+    """A unit's sharded parameters gathered whole, one all-gather.  Its
+    backward runs once every gradient of those parameters exists (the
+    engine waits for each output's), on whatever thread runs the
+    backward; it reduce-scatters them into the step's blocks.  The
+    gradient it passes on, to the store's anchor, is none."""
+
+    @staticmethod
+    def forward(ctx, unit, anchor):
+        ctx.unit = unit
+        return tuple(unit.dp._gather(unit.dp._blocks, unit.idx))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.unit.again = None
+        ctx.unit.dp._reduce(ctx.unit.idx, grads)
+        return None, None
+
+
+class _Unit:
+    """One run of a unit: its sharded parameters (indices) and, for the
+    backward, the weights gathered again.  Its saved-tensor hooks pack a
+    gathered weight (or a view of one) as its index and geometry, so the
+    forward keeps no gathered storage; the first unpack gathers the unit
+    again, and `_Unshard`'s backward drops it."""
+
+    def __init__(self, dp: "DataParallel", idx: List[int]):
+        self.dp, self.idx = dp, idx
+        self.ptrs = {}
+        self.again = None
+
+    def pack(self, t):
+        k = self.ptrs.get(t.untyped_storage().data_ptr())
+        if k is None or t.dtype != self.dp._params[self.idx[k]].dtype:
+            return t
+        return k, t.size(), t.stride(), t.storage_offset()
+
+    def unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        if self.again is None:
+            self.again = self.dp._gather(self.dp._blocks, self.idx)
+        k, size, stride, offset = packed
+        return self.again[k].as_strided(size, stride, offset)
+
+
 class DataParallel:
-    """Moment and gradient sharding over the ``data`` dim of ``mesh`` (a
-    DeviceMesh whose other dims have size 1), and its step.
+    """FSDP storage over the ``data`` dim of ``mesh`` (a DeviceMesh whose
+    other dims have size 1), and its step.
 
     ``dims[i]`` is the tensor dim of parameter i that the config's
     parameter rules (`sharding.select_rules`) shard over ``data``, or None
-    where they shard none; ``buckets`` groups the parameters for the
-    collectives (sharded and whole apart, one dtype a bucket, closed once
-    it holds BUCKET_NUMEL elements)."""
+    where they shard none.  The step installs this object as the
+    context's parameter store (`sharding.local_shard`), whose `run_unit`
+    the model's units call.
+
+    Why an autograd function a unit and saved-tensor hooks: the step
+    takes gradients with ``torch.autograd.grad``, under which no
+    ``.grad`` accumulation hook fires.  The function's backward is the
+    one point where every gradient of the unit exists, with no counting,
+    and its gradients never reach ``autograd.grad``'s result (which would
+    hold every full gradient at once): the blocks go to the step's
+    buffers, and ``autograd.grad`` is asked only for the whole parameters
+    and an anchor that carries no value.  A unit's gathered weights are
+    reached again by what its backward unpacks, on autograd's thread, so
+    the hooks need no thread-local state; a `remat` recomputation runs
+    the unit again under the sharding context its forward saved."""
 
     def __init__(self, cfg: ModelConfig, opt: AdamW, mesh,
                  microbatches: int = 1):
@@ -133,13 +194,20 @@ class DataParallel:
         if any(n > 1 for a, n in sizes.items() if a != "data"):
             raise ValueError(f"data parallel needs a mesh with one "
                              f"non-trivial dim, 'data'; got {sizes}")
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: data parallel gathers the "
+                             f"decoder's units; the encdec family has none")
         self.cfg, self.opt, self.mesh = cfg, opt, mesh
         self.microbatches = microbatches
         self.group = mesh.get_group("data")
         self.n, self.rank = sizes["data"], mesh.get_local_rank("data")
         self.param_rules = SH.select_rules(cfg)[1]
         self.dims: Optional[List[Optional[int]]] = None
-        self.buckets: Optional[List[List[int]]] = None
+        #: the most bytes of gathered weights alive at once since the last
+        #: step began (weakly tracked storages, read at each gather)
+        self.gathered_peak_bytes = 0
+        self._blocks = self._acc = None
+        self._live: list = []
 
     def shard_dims(self, params) -> List[Optional[int]]:
         specs = M.param_specs(self.cfg)
@@ -154,68 +222,98 @@ class DataParallel:
     def _block(self, full, d):
         return full.chunk(self.n, d)[self.rank]
 
+    @torch.no_grad()
     def init(self, params) -> ShardedTrainState:
-        """Take ``params`` (the same full values on every rank), view this
-        rank's blocks and zero their moments."""
+        """Take ``params`` (the same whole model on every rank): copy this
+        rank's block of each sharded parameter and free the parameter's
+        storage, one parameter at a time, then zero the blocks'
+        moments."""
+        named = list(params.named_parameters())
         self.dims = self.shard_dims(params)
-        ps = list(params.parameters())
-        self.buckets, open_ = [], {}
-        for i, (p, d) in enumerate(zip(ps, self.dims)):
-            key = (d is None, p.dtype)
-            if key not in open_:
-                open_[key] = [[], 0]
-                self.buckets.append(open_[key][0])
-            open_[key][0].append(i)
-            open_[key][1] += p.numel()
-            if open_[key][1] >= BUCKET_NUMEL:
-                del open_[key]
-        shards = [p.data if d is None else self._block(p.data, d)
-                  for p, d in zip(ps, self.dims)]
+        self._params = [p for _, p in named]
+        self._pos = {id(p): i for i, p in enumerate(self._params)}
+        self._slots = [(params.get_submodule(owner), attr) for owner, _, attr
+                       in (n.rpartition(".") for n, _ in named)]
+        shards = []
+        for p, d in zip(self._params, self.dims):
+            if d is None:
+                shards.append(p.data)
+                continue
+            if p.untyped_storage().nbytes() != p.numel() * p.element_size():
+                raise ValueError("data parallel frees each sharded "
+                                 "parameter's storage: it must hold that "
+                                 "parameter alone")
+            shards.append(self._block(p.data, d).clone())
+            p.untyped_storage().resize_(0)
+        self._anchor = torch.zeros((), device=self._params[0].device,
+                                   requires_grad=True)
         return ShardedTrainState(params, self.opt.init(shards), shards)
 
-    def _sharded(self):
-        return [b for b in self.buckets if self.dims[b[0]] is not None]
+    def param_bytes(self, state: ShardedTrainState) -> int:
+        """The parameter bytes this rank stores: the model's parameters'
+        storage and the sharded blocks."""
+        return sum(p.untyped_storage().nbytes()
+                   for p in state.params.parameters()) + sum(
+            b.untyped_storage().nbytes()
+            for b, d in zip(state.shards, self.dims) if d is not None)
+
+    def run_unit(self, modules, fn, saved: bool, args):
+        """``fn(*args)`` with the sharded parameters of ``modules``
+        gathered (`sharding.gathered`): the model's entries point at the
+        gathered tensors while it runs."""
+        idx = [i for m in modules for p in m.parameters()
+               if (i := self._pos.get(id(p))) is not None
+               and self.dims[i] is not None]
+        if not idx:
+            return fn(*args)
+        unit = _Unit(self, idx)
+        full = _Unshard.apply(unit, self._anchor)
+        for i, t in zip(idx, full):
+            owner, attr = self._slots[i]
+            owner._parameters[attr] = t
+        try:
+            if not (saved and torch.is_grad_enabled()):
+                return fn(*args)
+            unit.ptrs = {t.untyped_storage().data_ptr(): k
+                         for k, t in enumerate(full)}
+            with torch.autograd.graph.saved_tensors_hooks(unit.pack,
+                                                          unit.unpack):
+                return fn(*args)
+        finally:
+            for i in idx:
+                owner, attr = self._slots[i]
+                owner._parameters[attr] = self._params[i]
 
     @torch.no_grad()
-    def _gather(self, outs, blocks, bucket) -> None:
-        """``outs[i]`` (full shape) <- every rank's ``blocks[i]`` along dim
-        ``dims[i]``, for i in ``bucket``: one all-gather."""
-        moved = [blocks[i].movedim(self.dims[i], 0) for i in bucket]
+    def _gather(self, blocks, idx) -> List[torch.Tensor]:
+        """The full tensors of ``blocks[i]`` for i in ``idx``, every rank's
+        block along dim ``dims[i]``: one all-gather."""
+        moved = [blocks[i].movedim(self.dims[i], 0) for i in idx]
         send = torch.cat([m.reshape(-1) for m in moved])
         recv = send.new_empty(self.n * send.numel())
         dist.all_gather_into_tensor(recv, send, group=self.group)
         recv = recv.view(self.n, -1)
-        o = 0
-        for i, m in zip(bucket, moved):
-            out = outs[i].movedim(self.dims[i], 0)
-            out.unflatten(0, (self.n, m.shape[0])).copy_(
+        out, o = [], 0
+        for i, m in zip(idx, moved):
+            full = m.new_empty(self._params[i].shape)
+            full.movedim(self.dims[i], 0).unflatten(
+                0, (self.n, m.shape[0])).copy_(
                 recv[:, o:o + m.numel()].view(self.n, *m.shape))
             o += m.numel()
-
-    def gather_params(self, state: ShardedTrainState) -> None:
-        """The model's sharded parameters <- the ranks' current blocks."""
-        ps = [p.data for p in state.params.parameters()]
-        for b in self._sharded():
-            self._gather(ps, state.shards, b)
+            out.append(full)
+        self._live = [(r, b) for r, b in self._live if r() is not None]
+        self._live += [(weakref.ref(t.untyped_storage()),
+                        t.untyped_storage().nbytes()) for t in out]
+        self.gathered_peak_bytes = max(self.gathered_peak_bytes,
+                                       sum(b for _, b in self._live))
+        return out
 
     @torch.no_grad()
-    def _reduce(self, grads, bucket) -> None:
-        """``grads[i]`` <- the sum over ranks of it in float32, for i in
-        ``bucket``: this rank's block along dim ``dims[i]`` (one
-        reduce-scatter), or the whole where the bucket is not sharded
-        (one all-reduce)."""
-        if self.dims[bucket[0]] is None:
-            # each keeps its layout (a tied embedding's gradient is
-            # transposed), so its norm sums in the one-device step's order
-            gs = [grads[i].float() for i in bucket]
-            flat = torch.cat([g.reshape(-1) for g in gs])
-            dist.all_reduce(flat, group=self.group)
-            o = 0
-            for i, g in zip(bucket, gs):
-                grads[i] = g.copy_(flat[o:o + g.numel()].view(g.shape))
-                o += g.numel()
-            return
-        moved = [grads[i].movedim(self.dims[i], 0) for i in bucket]
+    def _reduce(self, idx, grads) -> None:
+        """Add the sum over ranks of a unit's gradients ``grads`` (of
+        parameters ``idx``), in float32, to the step's blocks: this rank's
+        block along dim ``dims[i]``, one reduce-scatter."""
+        moved = [g.movedim(self.dims[i], 0) for i, g in zip(idx, grads)]
         k = [m.numel() // self.n for m in moved]
         send = torch.empty((self.n, sum(k)), dtype=torch.float32,
                            device=moved[0].device)
@@ -227,27 +325,44 @@ class DataParallel:
         out = send.new_empty(sum(k))
         dist.reduce_scatter_tensor(out, send.view(-1), group=self.group)
         o = 0
-        for i, m, ki in zip(bucket, moved, k):
-            grads[i] = out[o:o + ki].view(-1, *m.shape[1:]).movedim(
-                0, self.dims[i])
+        for i, m, ki in zip(idx, moved, k):
+            g = out[o:o + ki].view(-1, *m.shape[1:]).movedim(0, self.dims[i])
+            self._acc[i] = g if self._acc[i] is None else self._acc[i].add_(g)
             o += ki
 
     def step(self, state: ShardedTrainState, batch):
         """One data-parallel step on this rank's ``batch``; metrics as
         `make_train_step`'s, over the global batch."""
-        self.gather_params(state)
         m = self.microbatches
         labels = batch["labels"]
         counts = (labels >= 0).reshape(m, -1).sum(1).float()
         dist.all_reduce(counts, group=self.group)
+        whole = [i for i, d in enumerate(self.dims) if d is None]
+        self._blocks, self._acc = state.shards, [None] * len(self.dims)
+        self._live, self.gathered_peak_bytes = [], 0
         # each rank's tokens are one data shard: one MoE dispatch group,
         # whose router statistics average over the ranks
-        with SH.local_shard(self.group):
-            loss, grads = _loss_and_grads(self.cfg, state.params, batch, m,
-                                          counts, 1.0 / self.n)
-        grads = list(grads)
-        for b in self.buckets:
-            self._reduce(grads, b)
+        with SH.local_shard(self.group, self):
+            loss, wgrads = _loss_and_grads(
+                self.cfg, state.params, batch, m, counts, 1.0 / self.n,
+                [self._params[i] for i in whole] + [self._anchor])
+        grads, self._acc = self._acc, None
+        for i, d in enumerate(self.dims):
+            if d is not None and grads[i] is None:
+                raise RuntimeError(f"parameter {i} is sharded but no unit "
+                                   f"of the forward gathered it")
+            if d is not None and m > 1:
+                grads[i] = grads[i] / m
+        # one all-reduce a whole gradient, each in float32 in its layout
+        # (a tied embedding's is transposed), so the norm sums in the
+        # one-device step's order; each model-type gradient is let go as
+        # its float32 copy is made
+        wgrads = list(wgrads[:-1])
+        for j, i in enumerate(whole):
+            g, wgrads[j] = wgrads[j].float(), None
+            flat = g.reshape(-1)
+            dist.all_reduce(flat, group=self.group)
+            grads[i] = g.copy_(flat.view(g.shape))
         # a parameter held whole counts once, on rank 0
         sq = sum_of_squares(g for g, d in zip(grads, self.dims)
                             if d is not None or self.rank == 0)
@@ -261,32 +376,42 @@ class DataParallel:
         return ShardedTrainState(state.params, opt_state, state.shards), \
             metrics
 
+    def host_state(self) -> TrainState:
+        """An empty whole state on the host, in the checkpoint's tree: the
+        model and both moments at full shape, the step."""
+        model = M.init_params(self.cfg, device="meta").to_empty(device="cpu")
+        m = [torch.empty(p.shape, dtype=torch.float32)
+             for p in model.parameters()]
+        return TrainState(model, AdamWState(
+            torch.zeros((), dtype=torch.int32), m,
+            [torch.empty_like(t) for t in m]))
+
     @torch.no_grad()
-    def full_state(self, state: ShardedTrainState) -> TrainState:
+    def full_state(self, state: ShardedTrainState) -> Optional[TrainState]:
         """The whole state as one device holds it (the checkpoint's
-        format): the model gathered, each moment gathered into a new
-        full-shape tensor."""
-        self.gather_params(state)
-        ps = list(state.params.parameters())
-
-        def full(blocks):
-            out = [b if d is None else b.new_empty(p.shape)
-                   for b, p, d in zip(blocks, ps, self.dims)]
-            for b in self._sharded():
-                self._gather(out, blocks, b)
-            return out
-
-        o = state.opt
-        return TrainState(state.params,
-                          AdamWState(o.step, full(o.m), full(o.v)))
+        format), on rank 0's host, None on the other ranks.  Parameter by
+        parameter: each sharded tensor (parameter, both moments) is
+        all-gathered alone and copied to the host."""
+        out = self.host_state() if self.rank == 0 else None
+        srcs = (state.shards, state.opt.m, state.opt.v)
+        if out is not None:
+            dsts = (list(out.params.parameters()), out.opt.m, out.opt.v)
+        for i, d in enumerate(self.dims):
+            for k, src in enumerate(srcs):
+                t = src[i] if d is None else self._gather(src, [i])[0]
+                if out is not None:
+                    dsts[k][i].copy_(t)
+        if out is not None:
+            out.opt.step.copy_(state.opt.step)
+        return out
 
     @torch.no_grad()
     def load(self, state: ShardedTrainState, full: TrainState) -> None:
-        """Take this rank's blocks of ``full`` (a whole state whose model
-        is the one of ``state``, its blocks views of it) into ``state``,
-        in place."""
+        """Take this rank's blocks of ``full`` (a whole state in
+        `host_state`'s tree) into ``state``, in place."""
         state.opt.step.copy_(full.opt.step)
-        for i, d in enumerate(self.dims):
-            for mine, whole in ((state.opt.m[i], full.opt.m[i]),
+        for i, (p, d) in enumerate(zip(full.params.parameters(), self.dims)):
+            for mine, whole in ((state.shards[i], p),
+                                (state.opt.m[i], full.opt.m[i]),
                                 (state.opt.v[i], full.opt.v[i])):
                 mine.copy_(whole if d is None else self._block(whole, d))

@@ -1322,6 +1322,48 @@ def test_data_parallel_step_on_the_card_equals_the_one_rank_step(nccl1):
         assert torch.equal(p, q)
 
 
+def test_data_parallel_step_under_remat_dots_on_the_device_thread(
+        nccl1, monkeypatch):
+    """One NCCL rank under remat "dots": autograd recomputes each unit on
+    its device thread, under the step's context (its parameter store
+    included), and the step equals the one-device step bit for bit
+    (float32, three steps)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    installed = []
+    in_context = SH.in_context
+
+    def recorded(saved):
+        installed.append((threading.get_ident(), saved[-1]))
+        return in_context(saved)
+
+    monkeypatch.setattr(SH, "in_context", recorded)
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), dtype="float32",
+                              remat="dots")
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=10, total=3))
+    one = M.init_params(cfg, seed=0, device="cuda")
+    state = TS.TrainState(one, opt.init(one))
+    dp = TS.DataParallel(cfg, opt, nccl1)
+    dstate = dp.init(M.init_params(cfg, seed=0, device="cuda"))
+    step = TS.make_train_step(cfg, opt)
+    for s in range(3):
+        batch = _train_batch(cfg, "cuda", seed=s)
+        state, m = step(state, batch)
+        dstate, dm = dp.step(dstate, batch)
+        assert {k: float(v) for k, v in m.items()} == {
+            k: float(v) for k, v in dm.items()}
+    for p, q in zip(state.params.parameters(), dstate.params.parameters()):
+        assert torch.equal(p, q)
+    main = threading.get_ident()
+    assert any(t != main and store is dp for t, store in installed)
+
+
 @pytest.fixture
 def two_cards(card):
     if torch.cuda.device_count() < 2:
@@ -1333,11 +1375,19 @@ def test_driver_on_two_cards_equals_one(two_cards, tmp_path):
     """The train driver at smoke width on 2 NCCL ranks against 1: every
     loss and grad norm within 2e-3 relative (bf16 products over another
     batch split round otherwise), a limit that one rank on half the batch
-    (what a rank computes that reduces nothing) must fall outside."""
+    (what a rank computes that reduces nothing) must fall outside.  Each
+    card of the two peaks below the one rank's peak by at least what the
+    dry run reckons the two store less (parameters and both float32
+    moments), less 10%."""
     import json
     import os
     import subprocess
     import sys
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.dryrun import MeshShape, device_bytes
+    from repro_torch.models import model as M
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -1368,9 +1418,22 @@ def test_driver_on_two_cards_equals_one(two_cards, tmp_path):
         return max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
                    for a, b in zip(got[k], want[k]))
 
+    def stored(world):
+        cfg = get_smoke("granite-3-2b")
+        named = dict(M.init_params(cfg, device="meta").named_parameters())
+        mesh = MeshShape((world, 1), ("data", "model"))
+        specs = M.param_specs(cfg)
+        f32 = {n: p.float() for n, p in named.items()}
+        return (device_bytes(named, specs, mesh, SH.PARAM_RULES)
+                + 2 * device_bytes(f32, specs, mesh, SH.PARAM_RULES))
+
     one, two, half = run(1, 8), run(2, 8), run(1, 4)
     assert rel(two, one) <= 2e-3, (two, one)
     assert rel(half, one) > 2e-3, (half, one)
+    drop = stored(1) - stored(2)
+    for peak in two["peak_mem_gb"]:
+        assert (one["peak_mem_gb"][0] - peak) * 1e9 >= 0.9 * drop, (
+            one["peak_mem_gb"], two["peak_mem_gb"], drop)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,8 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.dist import sharding as SH
+from repro_torch.launch.dryrun import MeshShape, device_bytes
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as CK
 from repro_torch.train import train_step as TS
@@ -61,10 +63,10 @@ def _state_np(state):
 
 def _ranks(world, tmp_path, tag, steps=STEPS, microbatches=1, save=None,
            load=None, arch=ARCH, remat=None, grad_thread=False,
-           bucket_numel=None):
+           one_unit=False):
     return run_ranks(dp_train_rank, world, str(tmp_path / f"store_{tag}"),
                      arch, steps, LR, SEQ, BATCH, microbatches, save, load,
-                     remat, grad_thread, bucket_numel)
+                     remat, grad_thread, one_unit)
 
 
 def _one_device(tmp_path, microbatches=1, arch=ARCH, groups=1):
@@ -148,40 +150,40 @@ def test_moe_ranks_recompute_their_router_under_the_forward_context(
                                        err_msg=str(i))
 
 
-def test_small_buckets_change_no_value(tmp_path):
-    """The collectives split into many buckets (each parameter of the
-    smoke width its own, or a few sharing one) give the one-bucket run's
-    values bit for bit."""
-    one = _ranks(2, tmp_path, "big")
-    many = _ranks(2, tmp_path, "small", bucket_numel=1 << 14)
-    assert len(many[0]["buckets"]) > 3 * len(one[0]["buckets"])
-    assert sorted(i for b in many[0]["buckets"] for i in b) == list(
-        range(len(one[0]["dims"])))
-    for a, b in zip(many, one):
+def test_grouping_by_unit_changes_no_value_against_one_group(tmp_path):
+    """Each unit gathered and reduce-scattered alone gives the values of
+    the whole model gathered as one unit (one all-gather before the
+    forward, one reduce-scatter after the backward), bit for bit."""
+    units = _ranks(2, tmp_path, "units")
+    one = _ranks(2, tmp_path, "group", one_unit=True)
+    for a, b in zip(units, one):
         assert a["metrics"] == b["metrics"]
         for k in ("m", "shards"):
             for x, y in zip(a["blocks"][k], b["blocks"][k]):
                 assert x.tobytes() == y.tobytes()
+        # one unit holds every sharded weight at once
+        assert b["gathered"][0] > 2 * a["gathered"][0]
     for k in ("m", "v"):
-        for x, y in zip(many[0]["whole"][k], one[0]["whole"][k]):
+        for x, y in zip(units[0]["whole"][k], one[0]["whole"][k]):
             assert x.tobytes() == y.tobytes()
 
 
 @pytest.mark.parametrize("world", [1, 2])
 def test_every_collective_gets_contiguous_tensors(tmp_path, world):
     """NCCL refuses a non-contiguous tensor (a tied embedding's gradient
-    is transposed); gloo takes it, so the CPU checks the inputs.  One
-    collective a bucket: a step gathers the sharded buckets and reduces
-    every bucket (plus the label count, the norm and the loss), a
-    whole-state gather gathers the sharded ones for the parameters and
-    both moments."""
-    for names, n, buckets, sharded in run_ranks(
+    is transposed); gloo takes it, so the CPU checks the inputs.  A step
+    gathers each unit for its forward and again for its backward and
+    reduce-scatters it once, then all-reduces each whole parameter's
+    gradient (plus the label count, the norm and the loss); a whole-state
+    gather gathers each sharded parameter and both its moments alone."""
+    for names, n, units, sharded, whole in run_ranks(
             contiguous_rank, world, str(tmp_path / "store"), ARCH):
         assert names == (["all_gather_into_tensor", "all_reduce",
                           "reduce_scatter_tensor"] if world > 1
                          else ["all_reduce"])
-        assert (sharded > 0) == (world > 1) and buckets > sharded
-        assert n == 4 * sharded + buckets + 3
+        assert (sharded > 0) == (world > 1) and units == 4
+        assert n == ((3 * units if world > 1 else 0) + whole + 3
+                     + 3 * sharded)
 
 
 def test_checkpoints_cross_rank_counts_bit_for_bit(tmp_path):
@@ -260,13 +262,20 @@ def test_driver_trains_on_two_gloo_ranks_and_resumes_on_one(tmp_path):
     for rc, out, err in res:
         assert rc == 0, err[-3000:]
     out0 = res[0][1].splitlines()
+    cfg = get_smoke(ARCH)
+    stored = device_bytes(
+        dict(M.init_params(cfg, device="meta").named_parameters()),
+        M.param_specs(cfg), MeshShape((2, 1), ("data", "model")),
+        SH.PARAM_RULES)
     assert out0[0] == ("data parallel: 2 rank(s) over gloo, mesh (2, 1) "
-                       "('data', 'model'), 28 of 38 parameters sharded")
+                       "('data', 'model'), 28 of 38 parameters sharded, "
+                       f"{stored:,} parameter bytes a rank")
     assert out0[-1].startswith("done: final loss")
     assert res[1][1] == ""                     # rank 1 prints nothing
     rec = json.loads(mj.read_text())
     assert rec["world"] == 2 and len(rec["loss"]) == 3
     assert rec["peak_mem_gb"] == [None, None]
+    assert rec["loss_by_rank"] == [rec["loss"]] * 2
     assert CK.latest_step(str(ck)) == 2
     cmd, env = _driver("--steps", "5", "--ckpt-dir", str(ck), "--resume")
     one = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,

@@ -195,60 +195,65 @@ def _grad_on_another_thread():
 
 def dp_train_rank(rank, world, arch, steps, lr, seq, batch, microbatches,
                   ckpt_save, ckpt_load, remat=None, grad_thread=False,
-                  bucket_numel=None):
+                  one_unit=False):
     """``steps`` data-parallel steps of ``arch``'s smoke width in float32
     from seed 0: metrics, the whole state gathered at the end (rank 0),
-    each rank's dims and blocks.  ``ckpt_load``: restore that checkpoint
-    first (its state is step 0's start); ``ckpt_save``: rank 0 writes the
-    whole state there after the last step.  ``remat`` replaces the
-    config's; ``grad_thread`` runs each backward on another thread;
-    ``bucket_numel`` replaces the collectives' bucket size."""
+    each rank's dims and blocks, the parameter bytes it stores (model
+    storage and blocks) and each step's peak of gathered bytes.
+    ``ckpt_load``: restore that checkpoint first (its state is step 0's
+    start); ``ckpt_save``: rank 0 writes the whole state there after the
+    last step.  ``remat`` replaces the config's; ``grad_thread`` runs each
+    backward on another thread; ``one_unit`` gathers the whole model as
+    one unit around each forward (the units inside find nothing left to
+    gather)."""
     from repro_torch.dist import sharding as SH
     from repro_torch.models import model as M
     from repro_torch.train import checkpoint as CK
     from repro_torch.train import train_step as TS
-    from repro_torch.train.optimizer import AdamWState
 
     cfg = _smoke_f32(arch)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
     if grad_thread:
         _grad_on_another_thread()
-    if bucket_numel:
-        TS.BUCKET_NUMEL = bucket_numel
+    if one_unit:
+        forward = M.forward
+        M.forward = lambda cfg, params, batch: SH.gathered(
+            [params], lambda: forward(cfg, params, batch))()
     opt = _opt(lr, steps)
     mesh = _cpu_mesh((world, 1), ("data", "model"))
     with SH.axis_rules(mesh, *SH.select_rules(cfg)):
         dp = TS.DataParallel(cfg, opt, mesh, microbatches)
         state = dp.init(M.init_params(cfg, seed=0, device="cpu"))
+        stored = [dp.param_bytes(state)]
         if ckpt_load:
-            full = [torch.empty(p.shape) for p in state.params.parameters()]
-            like = TS.TrainState(state.params, AdamWState(
-                torch.zeros((), dtype=torch.int32), full,
-                [torch.empty_like(t) for t in full]))
             dp.load(state, CK.restore(ckpt_load, CK.latest_step(ckpt_load),
-                                      like))
+                                      dp.host_state()))
         pipe = _pipe(cfg, seq, batch, rank, world)
-        metrics = []
+        metrics, gathered = [], []
         for s in range(steps):
             b = {k: torch.from_numpy(v) for k, v in pipe.batch(s).items()}
             state, m = dp.step(state, b)
             metrics.append({k: float(v) for k, v in m.items()})
+            gathered.append(dp.gathered_peak_bytes)
+            stored.append(dp.param_bytes(state))
         whole = dp.full_state(state)
         if ckpt_save and rank == 0:
             CK.save(ckpt_save, steps, whole, async_=False)
         blocks = {"m": [t.numpy().copy() for t in state.opt.m],
                   "shards": [t.detach().numpy().copy() for t in state.shards]}
         return {"metrics": metrics, "dims": dp.dims, "blocks": blocks,
-                "buckets": dp.buckets,
+                "stored": stored, "gathered": gathered,
+                "moment_bytes": sum(t.untyped_storage().nbytes()
+                                    for t in state.opt.m + state.opt.v),
                 "whole": _numpy_state(whole) if rank == 0 else None}
 
 
 def contiguous_rank(rank, world, arch):
     """One data-parallel step (and a whole-state gather) with every
     collective checked for contiguous tensors, as NCCL requires (gloo
-    takes any): the collectives' names and count, the buckets and the
-    sharded ones among them."""
+    takes any): the collectives' names and count, the number of units,
+    of sharded parameters and of whole ones."""
     import torch.distributed as dist
 
     from repro_torch.models import model as M
@@ -270,9 +275,13 @@ def contiguous_rank(rank, world, arch):
     cfg = _smoke_f32(arch)
     dp = TS.DataParallel(cfg, _opt(1e-3, 2), _cpu_mesh((world, 1),
                                                        ("data", "model")))
-    state = dp.init(M.init_params(cfg, seed=0, device="cpu"))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    units = len(params.pro) + len(params.blocks) // params.unit_len
+    state = dp.init(params)
     b = {k: torch.from_numpy(v)
          for k, v in _pipe(cfg, 16, 8, rank, world).batch(0).items()}
     state, _ = dp.step(state, b)
     dp.full_state(state)
-    return sorted(set(calls)), len(calls), len(dp.buckets), len(dp._sharded())
+    sharded = sum(d is not None for d in dp.dims)
+    return (sorted(set(calls)), len(calls), units, sharded,
+            len(dp.dims) - sharded)
