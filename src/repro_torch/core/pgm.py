@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import _pla, base, search, spec
 from repro_torch.kernels.common import keys_to_f64, resolve_device
+from repro_torch.obs.trace import span as trace_span
 
 spec.register_schema(
     "pgm",
@@ -97,32 +98,39 @@ def _assemble(n: int, grouped, levels_np: Sequence, hyper: dict,
     depth = len(lv)
     e0 = errs[0] + span
     max_err = 2 * e0 + 2
+    # each internal level's span name, made once
+    level_spans = {lvl: f"pgm.level{lvl}" for lvl in range(1, depth)}
 
     def lookup(state, q) -> base.SearchBound:
-        qf = keys_to_f64(q)
         levels = state["levels"]
         # top level: one vector rank count over <= top_cutoff anchors
-        top_x = levels[-1][0]
-        seg = (top_x[None, :] <= qf[:, None]).sum(dim=-1) - 1
-        seg = torch.clamp(seg, 0, n_top - 1)
+        with trace_span("pgm.top"):
+            qf = keys_to_f64(q)
+            top_x = levels[-1][0]
+            seg = (top_x[None, :] <= qf[:, None]).sum(dim=-1) - 1
+            seg = torch.clamp(seg, 0, n_top - 1)
         for lvl in range(depth - 1, 0, -1):
-            e = errs[lvl]
-            below_x = levels[lvl - 1][0]
-            m = below_x.shape[0]
-            pred = torch.clamp(_seg_pred(levels[lvl], seg, qf),
-                               -1.0, float(m) + 1.0)  # guard int overflow
-            lo = torch.clamp(torch.floor(pred).to(torch.int64) - e, 0, m - 1)
-            hi = torch.clamp(torch.ceil(pred).to(torch.int64) + e, 0, m - 1)
-            # segment = last anchor <= q  (upper_bound - 1)
-            ub = search.bounded_binary(below_x, qf, lo, hi, 2 * e + 3,
-                                       side="right")
-            seg = torch.clamp(ub - 1, 0, m - 1)
+            with trace_span(level_spans[lvl]):
+                e = errs[lvl]
+                below_x = levels[lvl - 1][0]
+                m = below_x.shape[0]
+                pred = torch.clamp(_seg_pred(levels[lvl], seg, qf),
+                                   -1.0, float(m) + 1.0)  # int overflow
+                lo = torch.clamp(torch.floor(pred).to(torch.int64) - e,
+                                 0, m - 1)
+                hi = torch.clamp(torch.ceil(pred).to(torch.int64) + e,
+                                 0, m - 1)
+                # segment = last anchor <= q  (upper_bound - 1)
+                ub = search.bounded_binary(below_x, qf, lo, hi, 2 * e + 3,
+                                           side="right")
+                seg = torch.clamp(ub - 1, 0, m - 1)
         # level 0 predicts the data position
-        pred = torch.clamp(_seg_pred(levels[0], seg, qf),
-                           -1.0, float(n) + 1.0)  # guard int overflow
-        lo = torch.floor(pred).to(torch.int64) - e0
-        hi = torch.ceil(pred).to(torch.int64) + e0
-        return base.clip_bound(lo, hi, n)
+        with trace_span("pgm.leaf"):
+            pred = torch.clamp(_seg_pred(levels[0], seg, qf),
+                               -1.0, float(n) + 1.0)  # guard int overflow
+            lo = torch.floor(pred).to(torch.int64) - e0
+            hi = torch.ceil(pred).to(torch.int64) + e0
+            return base.clip_bound(lo, hi, n)
 
     return base.IndexBuild(
         name="pgm",
@@ -145,11 +153,15 @@ def build(
     device=None,
 ) -> base.IndexBuild:
     """Fit a PGM over sorted uint64 ``keys`` on the host; verify it on
-    ``device`` (None: the CUDA card)."""
+    ``device`` (None: the CUDA card).  Traced as ``fit.host`` and
+    ``fit.verify``."""
     dev = resolve_device(device)
     keys = np.asarray(keys)
-    grouped = base.grouped_keys(keys)
-    levels = _fit(grouped[0], grouped[1], eps, eps_internal, top_cutoff)
-    return _assemble(len(keys), grouped, levels,
-                     dict(eps=eps, eps_internal=eps_internal,
-                          top_cutoff=top_cutoff, last_mile=last_mile), dev)
+    with trace_span("fit.host"):
+        grouped = base.grouped_keys(keys)
+        levels = _fit(grouped[0], grouped[1], eps, eps_internal, top_cutoff)
+    with trace_span("fit.verify"):
+        return _assemble(len(keys), grouped, levels,
+                         dict(eps=eps, eps_internal=eps_internal,
+                              top_cutoff=top_cutoff, last_mile=last_mile),
+                         dev)

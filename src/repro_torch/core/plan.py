@@ -11,6 +11,7 @@ position, then bounded last-mile search*.
                                 |.compile_instrumented()   -> (q, n_valid) -> (LB, health stats)
                                 |.compile_instrumented_merged()
                                                            -> (q, n_valid, delta) -> (LB, stats)
+                                |.searched_windows(q)      -> (lo, hi) the cuda lookup searches
 
 A plan is a `bounds` stage (the index's state dict, a predict function
 ``(state, q) -> (lo, hi)`` with ``hi`` inclusive, and the window bound
@@ -32,6 +33,12 @@ queries and a merged lookup's delta are encoded keys
 (`repro_torch.kernels.common.encode_keys`); the delta is sorted and
 padded with ``INT64_MAX``, the code of ``UINT64_MAX``.  Nothing is
 compiled: the ``compile*`` entry points cache the callables per plan.
+
+Traced (`repro_torch.obs.trace.span`): ``index.lower``, ``index.compile``
+(a callable made on a cache miss), ``lookup`` (each call of a `compile`
+callable) and, on the unfused cuda path, ``lookup.predict``.  The window
+counter (`searched_windows`, reduced by `window_counts`) reads what the
+cuda lookup's searching kernel is handed.
 """
 from __future__ import annotations
 
@@ -42,15 +49,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import base, search
+from repro_torch.kernels.bounded_search.ops import clip_windows
 # the health monitor's histogram geometry: `obs.health` owns it
 from repro_torch.obs.health import (HEALTH_DISP_BUCKETS,  # noqa: F401
                                     HEALTH_STATS_SIZE,
                                     HEALTH_TRAFFIC_BUCKETS)
+from repro_torch.obs.trace import span
 
 __all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_edges",
            "health_stats_expr",
            "lower", "pack_health_stats", "register_fused",
-           "FUSED_LOWERERS"]
+           "search_steps", "window_counts",
+           "FUSED_LOWERERS", "FUSED_WINDOWS"]
 
 #: The backend axis every lookup consumer can select on.
 BACKENDS = ("torch", "cuda")
@@ -63,6 +73,11 @@ SENTINEL = torch.iinfo(torch.int64).max
 #: replaces the whole predict+search pipeline with one kernel path;
 #: registered per index family, used by backend="cuda".
 FUSED_LOWERERS: Dict[str, Callable] = {}
+
+
+#: index name -> ``(plan, q) -> (lo, hi, max_width)``: the windows its
+#: fused executor searches, before the kernel's clip
+FUSED_WINDOWS: Dict[str, Callable] = {}
 
 
 def register_fused(name: str):
@@ -163,10 +178,8 @@ def health_stats_expr(pos, lo, hi, n: int, max_err: int, n_valid,
         mid = lo_n + (hi_n - lo_n) // 2
         disp = torch.where(valid, (pos.to(dt) - mid).abs(), 0)
         width = torch.where(valid, hi_n - lo_n + 1, 0)
-        # binary-search trip count over the bound: ceil(log2(width))
-        steps = torch.where(
-            valid, (width[:, None] > edges["steps"][None, :]).sum(
-                dim=1, dtype=torch.int32), 0).to(dt)
+        steps = torch.where(valid, search_steps(width, edges["steps"]),
+                            0).to(dt)
     disp_hist = _cum_bucket_hist(disp, edges["disp"], valid)
     rank = torch.clamp(pos, 0, n - 1).to(dt)
     traffic_hist = _cum_bucket_hist(rank, edges["traffic"], valid)
@@ -179,6 +192,35 @@ def health_stats_expr(pos, lo, hi, n: int, max_err: int, n_valid,
         "width_sum": width.sum(dtype=torch.int64),
         "steps_sum": steps.sum(dtype=torch.int64),
     }
+
+
+def search_steps(width, edges) -> torch.Tensor:
+    """``ceil(log2(width))`` of each window width as int32 (0 for a width
+    of 0 or 1): a binary search's trip count over the window, counted as
+    the powers of two ``edges`` (``1, 2, 4, ...``, as far as the widest
+    window needs) that lie below the width."""
+    return (width[:, None] > edges[None, :]).sum(dim=1, dtype=torch.int32)
+
+
+#: queries a `window_counts` pass reduces at once (bounds its temporaries)
+WINDOW_CHUNK = 1 << 20
+
+
+def window_counts(lo, hi) -> Dict[str, int]:
+    """``queries``, ``width_sum`` and ``steps_sum`` (`search_steps`) of
+    windows ``[lo, hi]`` (``hi`` inclusive; an empty window has width 0),
+    as Python ints: one host read at the end."""
+    width = torch.clamp(hi.to(torch.int64) - lo.to(torch.int64) + 1, min=0)
+    widest = int(width.max()) if width.numel() else 0
+    edges = torch.tensor([1 << j for j in range(max(1, widest.bit_length()))],
+                         dtype=torch.int64, device=width.device)
+    steps = torch.zeros((), dtype=torch.int64, device=width.device)
+    for i in range(0, width.shape[0], WINDOW_CHUNK):
+        steps += search_steps(width[i:i + WINDOW_CHUNK], edges).sum(
+            dtype=torch.int64)
+    return {"queries": int(width.shape[0]),
+            "width_sum": int(width.sum(dtype=torch.int64)),
+            "steps_sum": int(steps)}
 
 
 def pack_health_stats(stats) -> torch.Tensor:
@@ -244,7 +286,8 @@ class LookupPlan:
                 lower_bound_windows
 
             def run_cuda(q):
-                lo, hi = predict(state, q)
+                with span("lookup.predict"):
+                    lo, hi = predict(state, q)
                 # each query searches its own [lo, hi], which holds LB by
                 # the bounds contract
                 return lower_bound_windows(
@@ -384,10 +427,12 @@ class LookupPlan:
     def _compiled(self, key, make_expr) -> Callable:
         """The cached callable of ``key``, tagged with ``lookup_plan`` (this
         plan): the serving executor captures a tagged callable as a CUDA
-        graph on the card and runs any other callable as it is."""
+        graph on the card and runs any other callable as it is.  Making
+        it is traced as ``index.compile``."""
         fn = self._cache.get(key)
         if fn is None:
-            fn = self._cache[key] = make_expr()
+            with span("index.compile", kind=key[0], backend=key[1]):
+                fn = self._cache[key] = make_expr()
             fn.lookup_plan = self
         return fn
 
@@ -401,7 +446,26 @@ class LookupPlan:
         elif fused is None:
             fused = self.fused is not None
         return self._compiled(("lb", backend, fused),
-                              lambda: self.lb_expr(backend, fused))
+                              lambda: _spanned(self.lb_expr(backend, fused)))
+
+    def searched_windows(self, q):
+        """The windows the cuda lookup (`compile` ``("cuda")``) searches
+        for encoded queries ``q``, as int64 ``(lo, hi)``, ``hi``
+        inclusive: a registered fused executor's own (RMI: the f32
+        state's bounds through the kernel's arithmetic, clipped with the
+        state's ``max_err``), else the plan's predict clipped as the
+        bounded-search kernel clips it with ``max_err``; both clips are
+        ``lookup.cuh``'s ``clip_window``."""
+        if self.point_only:
+            raise ValueError(f"{self.name!r} is point-only: no windows")
+        windows = FUSED_WINDOWS.get(self.name) if self.fused else None
+        if windows is not None:
+            lo, hi, max_width = windows(self, q)
+        else:
+            lo, hi = self.bounds.predict(self.bounds.state, q)
+            max_width = self.bounds.max_err
+        start, count = clip_windows(self.n, lo, max_width, hi)
+        return start, start + count - 1
 
     def compile_merged(self, backend: str = "torch") -> Callable:
         return self._compiled(("merged", backend),
@@ -485,29 +549,39 @@ def lower(build: base.IndexBuild, data,
     if last_mile is None:
         last_mile = build.hyper.get("last_mile", "binary")
     n = int(build.meta.get("n", data.shape[0]))
-    bounds = BoundsStage(
-        state=build.state,
-        predict=build.lookup,
-        max_err=int(build.meta.get("max_err", n + 1)),
-    )
-    return LookupPlan(
-        name=build.name,
-        bounds=bounds,
-        data=data,
-        n=n,
-        last_mile=last_mile,
-        point_only=bool(build.meta.get("point_only", False)),
-        fused=FUSED_LOWERERS.get(build.name),
-        meta=dict(build.hyper),
-    )
+    with span("index.lower", index=build.name):
+        bounds = BoundsStage(
+            state=build.state,
+            predict=build.lookup,
+            max_err=int(build.meta.get("max_err", n + 1)),
+        )
+        return LookupPlan(
+            name=build.name,
+            bounds=bounds,
+            data=data,
+            n=n,
+            last_mile=last_mile,
+            point_only=bool(build.meta.get("point_only", False)),
+            fused=FUSED_LOWERERS.get(build.name),
+            meta=dict(build.hyper),
+        )
 
 
-@register_fused("rmi")
-def _rmi_fused(plan: LookupPlan) -> Callable:
-    """Whole-plan executor for RMI: the fused f32 lookup kernel (bounds
-    and last mile in one launch), returning int64 ranks.  The f32 state is
-    refit from the plan's keys with its error table verified through the
-    kernel's own arithmetic, so the result is still the exact LB rank."""
+def _spanned(fn: Callable) -> Callable:
+    """``fn`` with each call traced as ``lookup`` (``queries``: the
+    batch's length)."""
+
+    def lookup(q):
+        with span("lookup", queries=q.shape[0]):
+            return fn(q)
+
+    return lookup
+
+
+def _rmi_f32_state(plan: LookupPlan):
+    """The plan's f32 RMI state (made once a plan): refit from the plan's
+    keys with its error table verified through the kernel's own
+    arithmetic."""
     from repro_torch.kernels.common import decode_keys
     from repro_torch.kernels.rmi_lookup import ops as rops
 
@@ -518,6 +592,31 @@ def _rmi_fused(plan: LookupPlan) -> Callable:
             branching=int(plan.meta.get("branching", 1024)),
             device=plan.data.device)
         plan._cache["_rmi_f32_state"] = st
+    return st
+
+
+@register_fused("rmi")
+def _rmi_fused(plan: LookupPlan) -> Callable:
+    """Whole-plan executor for RMI: the fused f32 lookup kernel (bounds
+    and last mile in one launch), returning int64 ranks.  The f32 state's
+    error table holds under the kernel's own arithmetic, so the result is
+    still the exact LB rank."""
+    from repro_torch.kernels.rmi_lookup import ops as rops
+
+    st = _rmi_f32_state(plan)
     data = plan.data
 
     return lambda q: rops.rmi_lookup(st, data, q)
+
+
+def _rmi_windows(plan: LookupPlan, q):
+    """The fused kernel's windows before its clip: the f32 bounds
+    (`rmi_bounds`, the kernel's arithmetic) and the state's ``max_err``."""
+    from repro_torch.kernels.rmi_lookup import ops as rops
+
+    st = _rmi_f32_state(plan)
+    lo, hi = rops.rmi_bounds(st, q)
+    return lo, hi, st.max_err
+
+
+FUSED_WINDOWS["rmi"] = _rmi_windows

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import base, spec
 from repro_torch.kernels.common import (bucket_errors, encode_keys,
                                         keys_to_f64, resolve_device)
+from repro_torch.obs.trace import span
 
 spec.register_schema(
     "rmi",
@@ -149,49 +150,56 @@ def build(
     device=None,
 ) -> base.IndexBuild:
     """Fit a two-stage RMI over sorted uint64 ``keys``; verify it on
-    ``device`` (None: the CUDA card)."""
+    ``device`` (None: the CUDA card).  Traced as ``fit.host`` (the fit
+    with its device bucket assignment) and ``fit.verify``."""
     dev = resolve_device(device)
     keys = np.asarray(keys)
     n = len(keys)
-    x = base.np_keys_to_f64(keys)
-    y = np.arange(n, dtype=np.float64)
+    with span("fit.host"):
+        x = base.np_keys_to_f64(keys)
+        y = np.arange(n, dtype=np.float64)
 
-    # Normalize keys to [0, 1] for conditioning; constants live in the state.
-    x0, x1 = float(x[0]), float(x[-1])
-    inv_range = 1.0 / (x1 - x0) if x1 > x0 else 1.0
-    u_np = (x - x0) * inv_range
-    del x
-    coeffs, stage1 = _fit_stage1(stage1, u_np, y, n)
-    del u_np
+        # Normalize keys to [0, 1] for conditioning; constants live in
+        # the state.
+        x0, x1 = float(x[0]), float(x[-1])
+        inv_range = 1.0 / (x1 - x0) if x1 > x0 else 1.0
+        u_np = (x - x0) * inv_range
+        del x
+        coeffs, stage1 = _fit_stage1(stage1, u_np, y, n)
+        del u_np
 
-    B = int(branching)
-    scale = B / n
-    u_t, bkt_t = _stage1_bucket(
-        torch.as_tensor(coeffs, device=dev),
-        torch.tensor(x0, dtype=torch.float64, device=dev),
-        torch.tensor(inv_range, dtype=torch.float64, device=dev),
-        scale, B, encode_keys(keys, dev))
-    u = u_t.cpu().numpy()       # f64, identical to what lookups compute
-    bucket = bkt_t.cpu().numpy()
-    bucket_mono = bucket if stage1 in ("linear", "minmax") \
-        else np.maximum.accumulate(bucket)
+        B = int(branching)
+        scale = B / n
+        u_t, bkt_t = _stage1_bucket(
+            torch.as_tensor(coeffs, device=dev),
+            torch.tensor(x0, dtype=torch.float64, device=dev),
+            torch.tensor(inv_range, dtype=torch.float64, device=dev),
+            scale, B, encode_keys(keys, dev))
+        u = u_t.cpu().numpy()       # f64, identical to what lookups compute
+        bucket = bkt_t.cpu().numpy()
+        bucket_mono = bucket if stage1 in ("linear", "minmax") \
+            else np.maximum.accumulate(bucket)
 
-    # ---- stage 2: grouped closed-form least squares ----
-    cnt = np.bincount(bucket, minlength=B).astype(np.float64)
-    su = np.bincount(bucket, weights=u, minlength=B)
-    sy = np.bincount(bucket, weights=y, minlength=B)
-    suu = np.bincount(bucket, weights=u * u, minlength=B)
-    suy = np.bincount(bucket, weights=u * y, minlength=B)
-    denom = cnt * suu - su * su
-    ok = denom > 1e-30
-    a2 = np.where(ok, (cnt * suy - su * sy) / np.where(ok, denom, 1.0), 0.0)
-    a2 = np.maximum(a2, 0.0)  # monotone within bucket
-    with np.errstate(invalid="ignore"):
-        b2 = np.where(cnt > 0, (sy - a2 * su) / np.where(cnt > 0, cnt, 1.0), 0.0)
-    # Empty buckets: constant model at the first position of the next
-    # non-empty bucket (exact LB for any query landing there).
-    first_pos = np.searchsorted(bucket_mono, np.arange(B), side="left")
-    b2 = np.where(cnt == 0, first_pos.astype(np.float64), b2)
+        # ---- stage 2: grouped closed-form least squares ----
+        cnt = np.bincount(bucket, minlength=B).astype(np.float64)
+        su = np.bincount(bucket, weights=u, minlength=B)
+        sy = np.bincount(bucket, weights=y, minlength=B)
+        suu = np.bincount(bucket, weights=u * u, minlength=B)
+        suy = np.bincount(bucket, weights=u * y, minlength=B)
+        denom = cnt * suu - su * su
+        ok = denom > 1e-30
+        a2 = np.where(ok, (cnt * suy - su * sy) / np.where(ok, denom, 1.0),
+                      0.0)
+        a2 = np.maximum(a2, 0.0)  # monotone within bucket
+        with np.errstate(invalid="ignore"):
+            b2 = np.where(cnt > 0,
+                          (sy - a2 * su) / np.where(cnt > 0, cnt, 1.0), 0.0)
+        # Empty buckets: constant model at the first position of the next
+        # non-empty bucket (exact LB for any query landing there).
+        first_pos = np.searchsorted(bucket_mono, np.arange(B),
+                                    side="left")
+        b2 = np.where(cnt == 0, first_pos.astype(np.float64), b2)
 
-    return _assemble(keys, coeffs, a2, b2, x0, inv_range, B, stage1,
-                     last_mile, dev, u=u_t, bkt=bkt_t)
+    with span("fit.verify"):
+        return _assemble(keys, coeffs, a2, b2, x0, inv_range, B, stage1,
+                         last_mile, dev, u=u_t, bkt=bkt_t)

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core import analysis, base, search
 from repro_torch.kernels.common import encode_keys, resolve_device
+from repro_torch.obs.trace import span
 
 __all__ = [
     "BudgetError", "Candidate", "HyperField", "IndexSchema", "IndexSpec",
@@ -244,12 +245,14 @@ def coerce(spec_or_name, hyper: Optional[Mapping[str, Any]] = None,
 def build(spec: IndexSpec, keys: np.ndarray, device=None) -> base.IndexBuild:
     """THE index construction entry point: validate, then build on
     ``device`` (None: the CUDA card).  The validated spec rides in
-    ``meta["spec"]``."""
+    ``meta["spec"]``.  Traced as ``index.fit``."""
     spec = spec.validated()
     kwargs = dict(spec.hyper)
     if spec.last_mile is not None:
         kwargs["last_mile"] = spec.last_mile
-    b = base.REGISTRY[spec.index](np.asarray(keys), device=device, **kwargs)
+    with span("index.fit", index=spec.index):
+        b = base.REGISTRY[spec.index](np.asarray(keys), device=device,
+                                      **kwargs)
     b.meta["spec"] = spec
     return b
 

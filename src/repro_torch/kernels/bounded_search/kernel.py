@@ -2,9 +2,10 @@
 
 `launch` is the only place the kernel starts, and counts its launches in
 ``launch.launches``, and by card in ``launch.by_device`` (device name ->
-launches).  It checks what the kernel takes and raises on
-anything else; choosing between the kernel and its plain version is
-`ops.lower_bound_windows`'s job.
+launches); the ctypes call is traced as ``kernel.launch``
+(`repro_torch.obs.trace.span`).  It checks what the kernel takes and
+raises on anything else; choosing between the kernel and its plain
+version is `ops.lower_bound_windows`'s job.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs.trace import span
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -54,7 +56,8 @@ def launch(data: torch.Tensor, queries: torch.Tensor, lo: torch.Tensor,
     out = torch.empty(m, dtype=torch.int32, device=data.device)
     if m == 0:
         return out
-    with torch.cuda.device(data.device):
+    with torch.cuda.device(data.device), \
+            span("kernel.launch", kernel="bounded_search"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().bounded_search(
             data.data_ptr(), n, queries.data_ptr(), data.element_size(),

@@ -18,12 +18,16 @@ up to ``near_blocks`` sectors further out, then the balanced search over
 what is left.  B1 walks out no further than the midpoint's own sector on
 int64 keys and not at all on int32 keys, the fused ``rmi_lookup`` one sector
 further (`NEAR_BLOCKS`, the one table of every kernel's depth).
+
+`lower_bound_windows` is traced as ``lookup.search``
+(`repro_torch.obs.trace.span`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bounded_search import kernel
+from repro_torch.obs.trace import span
 
 #: ``lookup.cuh``'s ``kNearMax``: a window of at most this many positions
 #: is searched near its midpoint first
@@ -136,9 +140,11 @@ def lower_bound_windows(data, queries, lo, max_width: int, hi=None):
     n = data.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"n={n} keys: int32 ranks need n < 2^31")
-    if data.device.type == "cpu":
-        return lower_bound_windows_plain(data, queries, lo, max_width, hi)
-    if n == 0:
-        return torch.zeros(queries.shape[0], dtype=torch.int32,
-                           device=queries.device)
-    return kernel.launch(data, queries, lo, max_width, hi)
+    with span("lookup.search"):
+        if data.device.type == "cpu":
+            return lower_bound_windows_plain(data, queries, lo, max_width,
+                                             hi)
+        if n == 0:
+            return torch.zeros(queries.shape[0], dtype=torch.int32,
+                               device=queries.device)
+        return kernel.launch(data, queries, lo, max_width, hi)

@@ -3,17 +3,11 @@ whole lookup fused into one launch).
 
 `launch_bounds` and `launch_lookup` are the only places the two entries
 start, and each counts its launches in its own ``.launches``, and by card
-in its ``.by_device`` (device name -> launches).  They check
-what the kernel takes and raise on anything else; choosing between a
-kernel and its plain version is `ops`'s job.
-
-``launch_lookup.timed`` is None, or a list that each launch appends a
-``(start, end)`` pair of timing CUDA events to, recorded on the launch
-stream just before and just after the kernel: the kernel's own device
-time, without the host work of the call around it.  A launch made while
-its stream is being captured into a CUDA graph records no pair (a timing
-event cannot be captured); the count, like every count here, goes up
-once at capture and not at the graph's replays.
+in its ``.by_device`` (device name -> launches); a launch captured into a
+CUDA graph counts once, at capture, and not at the graph's replays.  Each
+ctypes call is traced as ``kernel.launch`` (`repro_torch.obs.trace.span`).
+They check what the kernel takes and raise on anything else; choosing
+between a kernel and its plain version is `ops`'s job.
 """
 from __future__ import annotations
 
@@ -22,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs.trace import span
 
 _MODEL = [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_int]
 
@@ -72,7 +67,7 @@ def launch_bounds(state, queries: torch.Tensor):
     hi = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return lo, hi
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("kernel.launch", kernel="rmi_bounds"):
         rc = _lib().rmi_bounds(
             queries.data_ptr(), m, *model_args(state),
             *table_ptrs(state), lo.data_ptr(), hi.data_ptr(),
@@ -98,22 +93,11 @@ def launch_lookup(state, data: torch.Tensor, queries: torch.Tensor):
     out = torch.empty(m, dtype=torch.int64, device=dev)
     if m == 0:
         return out
-    lib, timed = _lib(), launch_lookup.timed
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream()
-        if torch.cuda.is_current_stream_capturing():
-            timed = None
-        if timed is not None:
-            pair = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            pair[0].record(stream)
-        rc = lib.rmi_lookup(
+    with torch.cuda.device(dev), span("kernel.launch", kernel="rmi_lookup"):
+        rc = _lib().rmi_lookup(
             queries.data_ptr(), m, *model_args(state),
             *table_ptrs(state), data.data_ptr(), state.max_err,
-            out.data_ptr(), stream.cuda_stream)
-        if timed is not None:
-            pair[1].record(stream)
-            timed.append(pair)
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rmi_lookup launch failed: CUDA error {rc}")
     launch_lookup.launches += 1
@@ -126,4 +110,3 @@ launch_bounds.launches = 0
 launch_lookup.launches = 0
 launch_bounds.by_device = {}
 launch_lookup.by_device = {}
-launch_lookup.timed = None

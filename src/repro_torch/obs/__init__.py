@@ -8,7 +8,12 @@ stack imports *us*):
              of per-time-slot sub-histograms merged at read, with SLO
              tracking (p99 target, error-budget burn rate).
   trace      `SpanRecorder`, a bounded-ring structured span recorder with
-             per-request ids, exported as Chrome-trace JSON.
+             per-request ids, exported as Chrome-trace JSON; the guards
+             that put spans into code, each mirrored onto a running
+             `torch.profiler` as a `record_function` range: `maybe_span`
+             (the service's sites, which hold their recorder) and `span`
+             (the index's set-up and read path, which record into the
+             current recorder that `recording` installs).
   health     per-generation model health: prediction-displacement
              statistics against the static ``max_err`` bound and a
              windowed rank-traffic drift score, fed by the device-reduced
@@ -25,7 +30,7 @@ stack imports *us*):
 from repro_torch.obs.alerts import (AlertEngine, AlertRule, JsonlSink,
                                     LogSink, default_rules)
 from repro_torch.obs.health import GenerationHealth, HealthMonitor
-from repro_torch.obs.trace import SpanRecorder, maybe_span
+from repro_torch.obs.trace import SpanRecorder, maybe_span, recording, span
 from repro_torch.obs.windows import LatencyHistogram, WindowedMetrics
 
 __all__ = [
@@ -40,4 +45,6 @@ __all__ = [
     "WindowedMetrics",
     "default_rules",
     "maybe_span",
+    "recording",
+    "span",
 ]

@@ -1,11 +1,30 @@
-"""Structured span recorder with Chrome-trace export.
+"""Structured span recorder with Chrome-trace export, and the port's one
+span API.
 
 `SpanRecorder` is the request-causality half of the observability layer:
 a bounded ring buffer of spans stamped on the serve path's shared clock
 (`time.perf_counter`, the same clock `PendingRequest.t_submit` uses, so
 admission timestamps and completion timestamps subtract exactly).  The
-recording cost is one lock + one deque append; when tracing is disabled
-the serve path holds ``None`` and skips even that (`maybe_span`).
+recording cost is one lock + one deque append.
+
+Two guards put spans into the code, and both mirror each span onto the
+profiler's clock: while `torch.profiler` runs
+(``torch.autograd._profiler_enabled()``), a span also opens a
+`torch.profiler.record_function` range of its name, so a device trace
+puts each kernel under the port span that launched it.
+
+  maybe_span(recorder, ...)   the service's sites, which hold their
+                              recorder (``None`` when tracing is off)
+  span(name, **args)          the index's own sites (set-up and read
+                              path), which record into the *current*
+                              recorder: the one `recording(recorder)`
+                              installs in this thread's context
+                              (a `contextvars` variable), if any
+
+With no recorder and no profiler either guard returns one shared
+`contextlib.nullcontext` after those two checks; torch is looked up only
+once it has been imported, so this module stays importable (and
+stdlib-only) without the serve stack.
 
 Span taxonomy (the ``cat`` field):
 
@@ -19,6 +38,13 @@ Span taxonomy (the ``cat`` field):
   compile     executable-cache builds (misses and warm-up compiles) —
               the p99 outliers the async executor exists to hide
   lifecycle   index_build/publish (hot-swap), warmup, compaction
+  index       the index's own spans (`span`): set-up ``index.fit``
+              (``fit.host``, ``fit.verify``), ``index.lower``,
+              ``index.compile`` (RMI's ``refit.stage1``, ``refit.bins``,
+              ``refit.verify``); the read path ``lookup`` (one a call of
+              a `LookupPlan.compile` callable), ``lookup.predict``,
+              PGM's ``pgm.top``, ``pgm.level{k}``, ``pgm.leaf``,
+              ``lookup.search`` and ``kernel.launch`` (the ctypes call)
 
 Export is the Chrome trace-event JSON format ("traceEvents" with "X"
 complete events, µs timestamps), openable in `chrome://tracing` or
@@ -28,20 +54,31 @@ overlapping whatever caused it — a deep queue, a `compile` span, or a
 `to_chrome` reports how many spans were dropped, never silently
 truncates.
 
-Stdlib only: a copy of the reference's `repro.obs.trace`, held equal to
-it by `tests/test_torch_obs.py`.
+The recorder is a copy of the reference's `repro.obs.trace`, held equal
+to it by `tests/test_torch_obs.py`; the profiler mirror, `span` and
+`recording` are the port's own.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import json
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["Span", "SpanRecorder", "maybe_span"]
+__all__ = ["Span", "SpanRecorder", "maybe_span", "recording", "span"]
+
+#: the recorder `span` writes to in this context (`recording` sets it)
+_CURRENT: "contextvars.ContextVar[Optional[SpanRecorder]]" = \
+    contextvars.ContextVar("repro_torch_span_recorder", default=None)
+#: what every guard returns when nothing records
+_NULL = contextlib.nullcontext()
+#: ``torch.autograd._profiler_enabled``, once torch has been imported
+_profiler_enabled = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +94,78 @@ class Span:
     args: Optional[Dict] = None
 
 
+def _profiling() -> bool:
+    """Whether a `torch.profiler` session is recording on this thread;
+    False while torch has not been imported, since then none can be."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False
+        _profiler_enabled = torch.autograd._profiler_enabled
+    return _profiler_enabled()
+
+
+class _Traced:
+    """The span in ``recorder`` (if any) and, when ``profiling``, a
+    `record_function` range of the same name inside it."""
+
+    __slots__ = ("recorder", "name", "cat", "args", "fn", "t0")
+
+    def __init__(self, recorder: Optional["SpanRecorder"], name: str,
+                 cat: str, profiling: bool, args: dict):
+        self.recorder, self.name, self.cat, self.args = (recorder, name,
+                                                         cat, args)
+        self.fn = sys.modules["torch"].profiler.record_function(name) \
+            if profiling else None
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        if self.fn is not None:
+            self.fn.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        if self.recorder is not None:
+            self.recorder.add(self.name, self.t0, time.perf_counter(),
+                              cat=self.cat, **self.args)
+        return False
+
+
 def maybe_span(recorder: Optional["SpanRecorder"], name: str,
                cat: str = "serve", **args):
     """Context manager recording a span when tracing is on, a no-op
-    otherwise — the one guard every instrumentation site uses."""
-    if recorder is None:
-        return contextlib.nullcontext()
-    return recorder.span(name, cat=cat, **args)
+    otherwise — the guard the service's instrumentation sites use.  Under
+    a running profiler the span is also a `record_function` range."""
+    profiling = _profiling()
+    if recorder is None and not profiling:
+        return _NULL
+    return _Traced(recorder, name, cat, profiling, args)
+
+
+@contextlib.contextmanager
+def recording(recorder: Optional["SpanRecorder"]):
+    """Make ``recorder`` the current recorder of this context (this
+    thread, or this task) for the ``with`` block; ``None`` turns the
+    index's spans off inside it."""
+    token = _CURRENT.set(recorder)
+    try:
+        yield recorder
+    finally:
+        _CURRENT.reset(token)
+
+
+def span(name: str, cat: str = "index", **args):
+    """A span of the index's own code: recorded into the current
+    recorder and mirrored onto a running profiler; with neither, the one
+    shared no-op after two checks."""
+    recorder = _CURRENT.get()
+    profiling = _profiling()
+    if recorder is None and not profiling:
+        return _NULL
+    return _Traced(recorder, name, cat, profiling, args)
 
 
 class SpanRecorder:

@@ -248,27 +248,50 @@ def test_plan_backends_on_the_card(card):
             bs_kernel.launch.launches) == (before[0] + 1, before[1])
 
 
-def test_fused_wrapper_times_each_launch_when_asked(card):
-    """``launch_lookup.timed`` collects one event pair a launch, around
-    the kernel alone, and nothing once it is back to None."""
+def test_fused_lookup_shows_one_kernel_under_its_launch_span(card, tmp_path):
+    """Under the profiler one call of the fused lookup shows exactly one
+    kernel, whose runtime launch (matched by its correlation) lies inside
+    the port's ``kernel.launch`` span, itself inside ``lookup``, on the
+    launching thread: the port's spans on the device trace's clock."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
     keys = sosd.generate("wiki", 300_000, seed=1)
     q = sosd.make_queries(keys, 200_000, seed=2)
     qt = encode_keys(q, card)
     fn = plan.lower(rmi.build(keys, branching=4096, device=card),
                     encode_keys(keys, card)).compile("cuda")
     fn(qt)
-    rmi_kernel.launch_lookup.timed = timed = []
-    try:
-        outs = [fn(qt) for _ in range(3)]
-    finally:
-        rmi_kernel.launch_lookup.timed = None
-    fn(qt)
     torch.cuda.synchronize()
-    assert len(timed) == 3
-    assert all(a.elapsed_time(b) > 0 for a, b in timed)
-    for out in outs:
-        np.testing.assert_array_equal(out.cpu().numpy(),
-                                      np.searchsorted(keys, q))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn(qt)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(), np.searchsorted(keys, q))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    events = [e for e in (doc["traceEvents"] if isinstance(doc, dict)
+                          else doc) if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) == 1 and "rmi_lookup" in kernels[0]["name"]
+    corr = kernels[0]["args"]["correlation"]
+    launch = [e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and (e.get("args") or {}).get("correlation") == corr]
+    assert len(launch) == 1
+    at, tid = float(launch[0]["ts"]), launch[0]["tid"]
+
+    def open_at(name):
+        return [e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] == name and e["tid"] == tid
+                and float(e["ts"]) <= at <= float(e["ts"]) + float(e["dur"])]
+
+    (span,), (call,) = open_at("kernel.launch"), open_at("lookup")
+    assert float(call["ts"]) <= float(span["ts"])
+    assert float(span["ts"]) + float(span["dur"]) \
+        <= float(call["ts"]) + float(call["dur"])
 
 
 FAMILIES = [("pgm", {}), ("radix_spline", {}), ("rbs", {}), ("btree", {}),
