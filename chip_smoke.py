@@ -27,10 +27,13 @@ keys) with an RMI of 2^18 models beside ``torch.searchsorted`` (a
 ``timings`` row).  Then every other index family on the same keys and
 queries (``families``): PGM, RadixSpline, RBS, BTree, binary search and,
 on amzn, the Robin Hood hash, each built through ``spec.build`` at its schema
-defaults, run on both backends (the ``cuda`` backend of every family but
-the hash is ``bounded_search`` over the family's own windows) against
-``np.searchsorted`` or, for the hash, the point oracle, with its launch
-counts, B1's time and probes on its windows, and freed before the next.
+defaults, run on both backends (the ``cuda`` backend of PGM is the fused
+``pgm_lookup``, of every other family but the hash ``bounded_search`` over
+the family's own windows) against ``np.searchsorted`` or, for the hash,
+the point oracle, with its launch counts, B1's time and probes on its
+windows, and freed before the next; PGM's ``pgm_lookup`` also timed
+beside its unfused path, its plain version and ``torch.searchsorted``
+(a ``kernels`` row).
 On amzn the plan transforms of the PGM plan (``transforms``: scan, merged
 and merged scan over a delta of 1M absent keys, instrumented with pad
 lanes), and per cell B1 over the binary-search plan's whole-array windows
@@ -174,6 +177,8 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/bounded_search/kernel.py:61"),
     "rmi_lookup": ("src/repro_torch/csrc/rmi_lookup.cu",
                    "src/repro/kernels/rmi_lookup/kernel.py:49"),
+    "pgm_lookup": ("src/repro_torch/csrc/pgm_lookup.cu",
+                   "none: the reference's jnp descent, src/repro/core/pgm.py"),
 }
 # the last mile's windows: the earlier (every query searches the batch's
 # widest window, the kernel given no hi) and the kept one (its own window)
@@ -186,6 +191,8 @@ KERNEL_DESIGNS = {
     "rmi_lookup": "f32 bounds fused with the search, probed near the "
                   "prediction first (its sector and the next), then "
                   "balanced",
+    "pgm_lookup": "the f64 descent fused with B1's search of the leaf's "
+                  "window",
 }
 #: rmi_bounds is timed in this many turns, for its spread between them
 RMI_BOUNDS_TURNS = 3
@@ -551,10 +558,19 @@ def make_cell(dev, dataset, args):
 
 def kernel_counters():
     from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.pgm_lookup import kernel as pgm_kernel
     from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
     return {"rmi_lookup": rmi_kernel.launch_lookup,
             "rmi_bounds": rmi_kernel.launch_bounds,
-            "bounded_search": bs_kernel.launch}
+            "bounded_search": bs_kernel.launch,
+            "pgm_lookup": pgm_kernel.launch_lookup}
+
+
+def path_kernel(index: str) -> str:
+    """The one kernel a call of ``index``'s cuda lookup launches: the
+    family's fused kernel where it has one, else B1."""
+    from repro_torch.core import plan
+    return plan.FUSED_KERNELS.get(index, "bounded_search")
 
 
 def driven(fn):
@@ -970,6 +986,44 @@ def b1_on_windows(p, q0):
             "window": window_spread(count, probes, W, n)}
 
 
+def pgm_kernel_row(p, q0, errs):
+    """The fused ``pgm_lookup`` on a PGM plan's own state at the main
+    path's batch: held against its plain version, then timed in turns
+    beside the unfused cuda path (the torch descent and B1) and
+    ``torch.searchsorted``, with its bound (the queries read, the int64
+    ranks written and the answers' sectors) and its plain version."""
+    import torch
+    from repro_torch.kernels.pgm_lookup import kernel as pgm_kernel
+    from repro_torch.kernels.pgm_lookup import ops as pops
+
+    p.compile("cuda")
+    st, data, m = p._cache["_pgm_state"], p.data, q0.shape[0]
+    got = pgm_kernel.launch_lookup(st, data, q0)
+    plain = pops.pgm_lookup_plain(st, data, q0)
+    torch.cuda.synchronize()
+    errs["pgm_lookup"] = max(errs["pgm_lookup"], diff(got, plain))
+    check(torch.equal(got, plain), f"pgm_lookup vs plain on {p.n} keys")
+    b, by = bound(m * (8 + 8) + answer_sector_bytes(data, plain), 0)
+    fns = {"pgm_lookup": lambda: pgm_kernel.launch_lookup(st, data, q0),
+           "unfused": lambda: p.compile("cuda", fused=False)(q0),
+           "searchsorted": lambda: torch.searchsorted(data, q0)}
+    times = {k: [] for k in fns}
+    for k in [*fns, *reversed(list(fns))]:
+        times[k].append(cuda_ms(fns[k]))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    return {"name": "pgm_lookup", "route": "cuda",
+            "source": KERNEL_SOURCES["pgm_lookup"][0],
+            "replaces": KERNEL_SOURCES["pgm_lookup"][1],
+            "launches": None, "max_abs_err": errs["pgm_lookup"],
+            "ms": ms["pgm_lookup"],
+            "plain_ms": cuda_ms(lambda: pops.pgm_lookup_plain(st, data, q0),
+                                reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": ms["searchsorted"], "unfused_ms": ms["unfused"],
+            "readings_ms": times, "levels": len(st.state["levels"]),
+            "search": KERNEL_DESIGNS["pgm_lookup"]}
+
+
 def phase_families(dev, dataset, cell, data, args, log, totals, errs):
     """Every other index family on the cell's keys, built through
     ``spec.build`` on the card at its schema defaults, lowered, and run on
@@ -1006,7 +1060,7 @@ def phase_families(dev, dataset, cell, data, args, log, totals, errs):
             (outs, dt), launched = driven(lambda: run_batches(fn, qt))
             got = torch.cat(outs).cpu().numpy()
             exact = bool((got == (point if p.point_only else lb)).all())
-            want = {"bounded_search": calls} \
+            want = {path_kernel(name): calls} \
                 if backend == "cuda" and not p.point_only else {}
             rec[backend] = {"ns_per_lookup": dt / QUERIES * 1e9,
                             "seconds": dt, "exact": exact,
@@ -1024,6 +1078,7 @@ def phase_families(dev, dataset, cell, data, args, log, totals, errs):
         emit(rec, log)
         out[name] = rec
         if name == "pgm":
+            rec["pgm_kernel"] = pgm_kernel_row(p, q0, errs)
             rec["stage_profile"] = phase_stage_profile(
                 dataset, build, p, cell["queries"], log)
         if name == "pgm" and dataset == TRANSFORMS_CELL:
@@ -1113,8 +1168,7 @@ def phase_transforms(p, cell, log, totals):
               "n_valid": N_VALID, "exact": ok, "launches": launched,
               "check_s": time.perf_counter() - t0}, log)
         check(ok, f"transform {kind} != its oracle")
-        check(launched == {"rmi_lookup": 0, "rmi_bounds": 0,
-                           "bounded_search": 1},
+        check(launched == {k: int(k == "pgm_lookup") for k in launched},
               f"transform {kind} launched {launched}")
         for k, v in launched.items():
             totals[k] += v
@@ -1511,7 +1565,7 @@ def phase_serve(dev, dataset, cell, log, totals, executor="sync",
     halves["launch_interval_ms"] = pct(np.diff([b[0] for b in batches])
                                        * 1e3)
     gen = svc.generation
-    kernel = "rmi_lookup" if gen.plan.name == "rmi" else "bounded_search"
+    kernel = path_kernel(gen.plan.name)
     graphs = svc.exec_cache.graph_stats()
     # the instrumented read's cost on one batch (routed: on shard 0's
     # lane, a batch of its share of max_batch routed to it)
@@ -2187,7 +2241,7 @@ def phase_mutable(dev, cell, args, log, totals):
               f"{delta['batches']} dispatches")
         check(graphs["kernel_launches"] == {
             k: graphs["graph_replays"] + graphs["warm_replays"]
-            if k == "bounded_search" else 0
+            if k == "pgm_lookup" else 0
             for k in graphs["kernel_launches"]},
               f"mutable {mix}: graphs launched {graphs}")
         for k, v in launched.items():
@@ -2234,7 +2288,8 @@ def phase_stage_profile(dataset, build, p, queries, log):
            "graph_search_ns": max(0.0, graph_ns["total"]
                                   - graph_ns["predict"]),
            "hyper": build.hyper, "max_err": p.bounds.max_err,
-           "fused": p.name == "rmi", "seconds": time.perf_counter() - t0}
+           "fused": p.fused is not None,
+           "seconds": time.perf_counter() - t0}
     emit(rec, log)
     check(rec["stage_total_ns"] > 0 and rec["cost_model_ratio"] > 0,
           f"stage profile {dataset}/{p.name}: {rec}")
@@ -2268,8 +2323,7 @@ def phase_tune(dev, cell, args, log, totals):
     fn = p.compile(res.spec.backend)
     got, launched = driven(lambda: fn(qt))
     exact = bool(np.array_equal(got.cpu().numpy(), np.searchsorted(keys, q)))
-    kernel = "rmi_lookup" if p.name == "rmi" else "bounded_search"
-    want = {kernel: 1} if res.spec.backend == "cuda" else {}
+    want = {path_kernel(p.name): 1} if res.spec.backend == "cuda" else {}
     rec = {"phase": "tune", "dataset": TUNE_CELL, "n": len(keys),
            "max_bytes": TUNE_MAX_BYTES, "max_configs": TUNE_CONFIGS,
            "names": list(spec.sweep_names()), "spec": res.spec.to_dict(),
@@ -3556,7 +3610,8 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0}
+    errs = {"rmi_lookup": 0, "rmi_bounds": 0, "bounded_search": 0,
+            "pgm_lookup": 0}
     phase_kernels_vs_plain(dev, args.seed, log, errs)
     totals = {k: 0 for k in kernel_counters()}
     cells = {}
@@ -3627,6 +3682,7 @@ def main(argv=None) -> int:
         "dist_collectives": phase_dist_collectives(log, world, args.seed)}
     driver = phase_driver(log)
     kernels = cells[MAIN_DATASETS[0]]["kernels"]
+    kernels.append(cells[MAIN_DATASETS[0]]["families"]["pgm"]["pgm_kernel"])
     for k in kernels:
         k["launches"] = totals[k["name"]]
         k["max_abs_err"] = max(errs[k["name"]],

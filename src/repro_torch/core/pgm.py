@@ -18,9 +18,20 @@ with torch ops on the build's device, in the lookup's own op order (the
 multiply, then the add, as separate ops), so the bound is the port's own:
 XLA on the CPU may contract the reference's into an FMA, and its bounds
 can differ by an ulp on a few lanes.  The ranks do not differ.
+
+Two executors run the descent: `descend` as torch ops (the build's
+``lookup``: the torch backend, the unfused cuda path and, on the CPU, the
+fused kernel's plain version; traced as ``pgm.top``, ``pgm.level{k}``
+and ``pgm.leaf``), and on the card the
+fused ``pgm_lookup`` kernel (`repro_torch.kernels.pgm_lookup`), which
+repeats `descend`'s arithmetic step for step and hands each window to the
+bounded search in registers.  The state holds what both read: the levels
+(bottom first), each level's verified error ``errs``, the leaf's window
+half-width ``e0`` and ``n``.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -94,53 +105,60 @@ def _assemble(n: int, grouped, levels_np: Sequence, hyper: dict,
         ly = torch.arange(lx.shape[0], dtype=torch.float64, device=dev)
         errs.append(_level_error(lv[lvl], lx, ly) + 1)  # +1: gap safety
     size = sum(base.nbytes(*level) for level in lv)
-    n_top = lv[-1][0].shape[0]
     depth = len(lv)
     e0 = errs[0] + span
-    max_err = 2 * e0 + 2
-    # each internal level's span name, made once
-    level_spans = {lvl: f"pgm.level{lvl}" for lvl in range(1, depth)}
-
-    def lookup(state, q) -> base.SearchBound:
-        levels = state["levels"]
-        # top level: one vector rank count over <= top_cutoff anchors
-        with trace_span("pgm.top"):
-            qf = keys_to_f64(q)
-            top_x = levels[-1][0]
-            seg = (top_x[None, :] <= qf[:, None]).sum(dim=-1) - 1
-            seg = torch.clamp(seg, 0, n_top - 1)
-        for lvl in range(depth - 1, 0, -1):
-            with trace_span(level_spans[lvl]):
-                e = errs[lvl]
-                below_x = levels[lvl - 1][0]
-                m = below_x.shape[0]
-                pred = torch.clamp(_seg_pred(levels[lvl], seg, qf),
-                                   -1.0, float(m) + 1.0)  # int overflow
-                lo = torch.clamp(torch.floor(pred).to(torch.int64) - e,
-                                 0, m - 1)
-                hi = torch.clamp(torch.ceil(pred).to(torch.int64) + e,
-                                 0, m - 1)
-                # segment = last anchor <= q  (upper_bound - 1)
-                ub = search.bounded_binary(below_x, qf, lo, hi, 2 * e + 3,
-                                           side="right")
-                seg = torch.clamp(ub - 1, 0, m - 1)
-        # level 0 predicts the data position
-        with trace_span("pgm.leaf"):
-            pred = torch.clamp(_seg_pred(levels[0], seg, qf),
-                               -1.0, float(n) + 1.0)  # guard int overflow
-            lo = torch.floor(pred).to(torch.int64) - e0
-            hi = torch.ceil(pred).to(torch.int64) + e0
-            return base.clip_bound(lo, hi, n)
-
     return base.IndexBuild(
         name="pgm",
-        state={"levels": lv},
-        lookup=lookup,
+        state={"levels": lv, "errs": tuple(errs), "e0": e0, "n": n},
+        lookup=descend,
         size_bytes=size,
         hyper=hyper,
-        meta={"max_err": max_err, "levels": depth, "n": n,
+        meta={"max_err": 2 * e0 + 2, "levels": depth, "n": n,
               "segments": lv[0][0].shape[0]},
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _level_span(lvl: int) -> str:
+    return f"pgm.level{lvl}"
+
+
+def descend(state, q) -> base.SearchBound:
+    """The descent of encoded queries ``q`` to their data windows ``(lo,
+    hi)``: the top level's rank count, each internal level's prediction
+    and upper-bound search over the level below's anchors, then level 0's
+    prediction widened by ``e0``.  Traced as ``pgm.top``,
+    ``pgm.level{k}`` and ``pgm.leaf``."""
+    levels, errs, e0, n = state["levels"], state["errs"], state["e0"], \
+        state["n"]
+    # top level: one vector rank count over <= top_cutoff anchors
+    with trace_span("pgm.top"):
+        qf = keys_to_f64(q)
+        top_x = levels[-1][0]
+        seg = (top_x[None, :] <= qf[:, None]).sum(dim=-1) - 1
+        seg = torch.clamp(seg, 0, top_x.shape[0] - 1)
+    for lvl in range(len(levels) - 1, 0, -1):
+        with trace_span(_level_span(lvl)):
+            e = errs[lvl]
+            below_x = levels[lvl - 1][0]
+            m = below_x.shape[0]
+            pred = torch.clamp(_seg_pred(levels[lvl], seg, qf),
+                               -1.0, float(m) + 1.0)  # int overflow
+            lo = torch.clamp(torch.floor(pred).to(torch.int64) - e,
+                             0, m - 1)
+            hi = torch.clamp(torch.ceil(pred).to(torch.int64) + e,
+                             0, m - 1)
+            # segment = last anchor <= q  (upper_bound - 1)
+            ub = search.bounded_binary(below_x, qf, lo, hi, 2 * e + 3,
+                                       side="right")
+            seg = torch.clamp(ub - 1, 0, m - 1)
+    # level 0 predicts the data position
+    with trace_span("pgm.leaf"):
+        pred = torch.clamp(_seg_pred(levels[0], seg, qf),
+                           -1.0, float(n) + 1.0)  # guard int overflow
+        lo = torch.floor(pred).to(torch.int64) - e0
+        hi = torch.ceil(pred).to(torch.int64) + e0
+        return base.clip_bound(lo, hi, n)
 
 
 @base.register("pgm")

@@ -22,9 +22,11 @@ A plan is a `bounds` stage (the index's state dict, a predict function
   ``"cuda"``   the hand-written kernels: the bounded-search kernel
                consuming the plan's bounds (any index), or, where an index
                registers one, a fused whole-plan executor (RMI: the
-               ``rmi_lookup`` kernel, bounds and search in one launch).  For
-               a plan whose data lies on the CPU each kernel wrapper takes
-               its plain version, so this backend runs everywhere too.
+               ``rmi_lookup`` kernel, bounds and search in one launch; PGM:
+               the ``pgm_lookup`` kernel, the descent and search in one
+               launch).  For a plan whose data lies on the CPU each kernel
+               wrapper takes its plain version, so this backend runs
+               everywhere too.
 
 Both backends return the exact lower-bound rank, so they agree bit for
 bit on every plan.  A point-only index (robin_hash) predicts ``(found,
@@ -36,9 +38,10 @@ compiled: the ``compile*`` entry points cache the callables per plan.
 
 Traced (`repro_torch.obs.trace.span`): ``index.lower``, ``index.compile``
 (a callable made on a cache miss), ``lookup`` (each call of a `compile`
-callable) and, on the unfused cuda path, ``lookup.predict``.  The window
-counter (`searched_windows`, reduced by `window_counts`) reads what the
-cuda lookup's searching kernel is handed.
+callable) and, on the unfused cuda path, ``lookup.predict`` (for PGM
+with its ``pgm.*`` spans, which the fused kernel does not show).  The
+window counter (`searched_windows`, reduced by `window_counts`) reads
+what the cuda lookup's searching kernel is handed.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ __all__ = ["BACKENDS", "BoundsStage", "LookupPlan", "health_edges",
            "health_stats_expr",
            "lower", "pack_health_stats", "register_fused",
            "search_steps", "window_counts",
-           "FUSED_LOWERERS", "FUSED_WINDOWS"]
+           "FUSED_KERNELS", "FUSED_LOWERERS", "FUSED_WINDOWS"]
 
 #: The backend axis every lookup consumer can select on.
 BACKENDS = ("torch", "cuda")
@@ -74,15 +77,20 @@ SENTINEL = torch.iinfo(torch.int64).max
 #: registered per index family, used by backend="cuda".
 FUSED_LOWERERS: Dict[str, Callable] = {}
 
+#: index name -> the one kernel its fused executor launches a call (a
+#: family without one launches ``bounded_search``)
+FUSED_KERNELS: Dict[str, str] = {}
+
 
 #: index name -> ``(plan, q) -> (lo, hi, max_width)``: the windows its
 #: fused executor searches, before the kernel's clip
 FUSED_WINDOWS: Dict[str, Callable] = {}
 
 
-def register_fused(name: str):
+def register_fused(name: str, kernel: str):
     def deco(fn):
         FUSED_LOWERERS[name] = fn
+        FUSED_KERNELS[name] = kernel
         return fn
 
     return deco
@@ -516,9 +524,9 @@ class LookupPlan:
         """This plan placed on ``device``: its verified bounds state and
         keys copied there, with the state a fused executor derived from
         them (RMI's f32 tables, verified once, through the kernel's own
-        arithmetic, where the plan was lowered).  The copy makes its own
-        callables; nothing it runs reads another device.  Itself when it
-        already lies there."""
+        arithmetic, where the plan was lowered; PGM's kernel view of its
+        levels).  The copy makes its own callables; nothing it runs reads
+        another device.  Itself when it already lies there."""
         if self.data.device == torch.device(device):
             return self
         derived = {k: base.to_device(v, device)
@@ -595,7 +603,7 @@ def _rmi_f32_state(plan: LookupPlan):
     return st
 
 
-@register_fused("rmi")
+@register_fused("rmi", "rmi_lookup")
 def _rmi_fused(plan: LookupPlan) -> Callable:
     """Whole-plan executor for RMI: the fused f32 lookup kernel (bounds
     and last mile in one launch), returning int64 ranks.  The f32 state's
@@ -620,3 +628,30 @@ def _rmi_windows(plan: LookupPlan, q):
 
 
 FUSED_WINDOWS["rmi"] = _rmi_windows
+
+
+def _pgm_state(plan: LookupPlan):
+    """The plan's PGM state as the fused kernel reads it (made once a
+    plan): the build's verified levels, errors and ``max_err``, with each
+    level's search trip count."""
+    from repro_torch.kernels.pgm_lookup import ops as pops
+
+    st = plan._cache.get("_pgm_state")
+    if st is None:
+        st = plan._cache["_pgm_state"] = pops.prepare_state(
+            plan.bounds.state, plan.bounds.max_err)
+    return st
+
+
+@register_fused("pgm", "pgm_lookup")
+def _pgm_fused(plan: LookupPlan) -> Callable:
+    """Whole-plan executor for PGM: the ``pgm_lookup`` kernel (the descent
+    and the last mile in one launch), returning int64 ranks.  It searches
+    the windows of the plan's own predict with its ``max_err``, so
+    `LookupPlan.searched_windows` needs no entry in `FUSED_WINDOWS`."""
+    from repro_torch.kernels.pgm_lookup import ops as pops
+
+    st = _pgm_state(plan)
+    data = plan.data
+
+    return lambda q: pops.pgm_lookup(st, data, q)

@@ -9,10 +9,10 @@ so they are measured apart on live plans:
   measured   time the plan's torch predict alone and the full plan
              callable on the same query batch; the difference is the
              bounded-search stage (best of k, CUDA events on the card,
-             the host clock on the CPU).  RMI's fused ``cuda`` path is
-             one kernel for both stages, so its search stage is that
-             difference too (total minus the standalone torch predict,
-             clamped at 0), not a split inside the kernel.
+             the host clock on the CPU).  A fused ``cuda`` path (RMI's,
+             PGM's) is one kernel for both stages, so its search stage is
+             that difference too (total minus the standalone torch
+             predict, clamped at 0), not a split inside the kernel.
   proxy      `repro_torch.core.analysis.describe`/`cost_ns` split along
              the same seam: the last-mile term is the probes, bytes and
              flops attributable to the bounded search, the remainder is

@@ -43,7 +43,9 @@ Span taxonomy (the ``cat`` field):
               ``index.compile`` (RMI's ``refit.stage1``, ``refit.bins``,
               ``refit.verify``); the read path ``lookup`` (one a call of
               a `LookupPlan.compile` callable), ``lookup.predict``,
-              PGM's ``pgm.top``, ``pgm.level{k}``, ``pgm.leaf``,
+              PGM's ``pgm.top``, ``pgm.level{k}``, ``pgm.leaf`` (its
+              torch descent, `core.pgm.descend`; the fused
+              ``pgm_lookup`` kernel on the card shows none),
               ``lookup.search`` and ``kernel.launch`` (the ctypes call)
 
 Export is the Chrome trace-event JSON format ("traceEvents" with "X"

@@ -164,11 +164,13 @@ def kernel_launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counts, by kernel name (every card's;
     each wrapper's ``by_device`` splits its count by card)."""
     from repro_torch.kernels.bounded_search import kernel as bs_kernel
+    from repro_torch.kernels.pgm_lookup import kernel as pgm_kernel
     from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 
     return {"rmi_lookup": rmi_kernel.launch_lookup.launches,
             "rmi_bounds": rmi_kernel.launch_bounds.launches,
-            "bounded_search": bs_kernel.launch.launches}
+            "bounded_search": bs_kernel.launch.launches,
+            "pgm_lookup": pgm_kernel.launch_lookup.launches}
 
 
 class GraphStats:

@@ -21,6 +21,8 @@ from repro_torch.kernels.bounded_search import kernel as bs_kernel
 from repro_torch.kernels.bounded_search.ops import (lower_bound_windows,
                                                     lower_bound_windows_plain)
 from repro_torch.kernels.common import encode_keys, radix_prefix
+from repro_torch.kernels.pgm_lookup import kernel as pgm_kernel
+from repro_torch.kernels.pgm_lookup import ops as pgm_ops
 from repro_torch.kernels.rmi_lookup import kernel as rmi_kernel
 from repro_torch.kernels.rmi_lookup import ops
 
@@ -294,6 +296,122 @@ def test_fused_lookup_shows_one_kernel_under_its_launch_span(card, tmp_path):
         <= float(call["ts"]) + float(call["dur"])
 
 
+#: (dataset, hyper, depth) of the fused PGM kernel's card tests on 2M
+#: keys: depths 1 to 6, and a top level of 10,428 anchors, far past the
+#: default ``top_cutoff`` of 64 (the schema allows 2^16)
+PGM_CASES = [("wiki", {"eps": 64, "top_cutoff": 2 ** 16}, 1),
+             ("wiki", {"eps": 8, "top_cutoff": 2 ** 16}, 1),
+             ("wiki", {"eps": 64}, 2),
+             ("wiki", {"eps": 8, "eps_internal": 2, "top_cutoff": 16}, 3),
+             ("amzn", {"eps": 8, "eps_internal": 2, "top_cutoff": 16}, 3),
+             ("wiki", {"eps": 8, "eps_internal": 2, "top_cutoff": 2}, 4),
+             ("amzn", {"eps": 16, "eps_internal": 2, "top_cutoff": 4}, 4),
+             ("wiki", {"eps": 4, "eps_internal": 1, "top_cutoff": 4}, 5),
+             ("amzn", {"eps": 2, "eps_internal": 1, "top_cutoff": 2}, 6)]
+
+
+@lru_cache(maxsize=None)
+def _pgm_keys(ds):
+    return sosd.generate(ds, 2_000_000, seed=1)
+
+
+def _pgm_plan(card, ds, hyper):
+    keys = _pgm_keys(ds)
+    b = spec.build(spec.IndexSpec("pgm", hyper), keys, device=card)
+    return keys, plan.lower(b, encode_keys(keys, card))
+
+
+def _pgm_plain(st, data, qt, chunk=1 << 17):
+    """`pgm_lookup_plain` a chunk at a time: its top level is a
+    [queries x top anchors] compare."""
+    return torch.cat([pgm_ops.pgm_lookup_plain(st, data, qt[i:i + chunk])
+                      for i in range(0, qt.shape[0], chunk)])
+
+
+@pytest.mark.parametrize("ds,hyper,depth", PGM_CASES,
+                         ids=[f"{ds}-depth{d}-{i}"
+                              for i, (ds, _, d) in enumerate(PGM_CASES)])
+def test_pgm_kernel_vs_plain(card, ds, hyper, depth):
+    """The fused PGM kernel equals its plain version (the torch descent,
+    then B1's plain search) on every lane of 4M queries, and
+    np.searchsorted; one launch a call.  With every error narrowed to 0
+    the windows miss their answers, and the two still agree."""
+    keys, p = _pgm_plan(card, ds, hyper)
+    assert len(p.bounds.state["levels"]) == depth
+    rng = np.random.default_rng(depth)
+    q = np.concatenate([
+        sosd.make_queries(keys, 3_000_000, seed=2),
+        rng.integers(0, 2**64 - 1, 1_000_000, np.uint64, endpoint=True),
+        np.array([0, 1, 2**53 + 1, 2**63, 2**64 - 1], np.uint64)])
+    qt = encode_keys(q, card)
+    fn = p.compile("cuda")
+    st = p._cache["_pgm_state"]
+    if depth == 1 and hyper["eps"] == 8:
+        assert st.state["levels"][-1][0].shape[0] > 4096  # a wide top
+    before = _counts()
+    got = fn(qt)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 1]
+    assert torch.equal(got, _pgm_plain(st, p.data, qt))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.searchsorted(keys, q))
+    state = p.bounds.state
+    narrow = pgm_ops.prepare_state(
+        dict(state, errs=(0,) * len(state["errs"]), e0=0), p.bounds.max_err)
+    got = pgm_ops.pgm_lookup(narrow, p.data, qt)
+    assert torch.equal(got, _pgm_plain(narrow, p.data, qt))
+    assert (got.cpu().numpy() != np.searchsorted(keys, q)).any()
+
+
+def test_pgm_lookup_is_one_launch_under_its_span(card):
+    """One call of the fused PGM lookup: one ``kernel.launch`` span with
+    ``kernel="pgm_lookup"`` inside ``lookup``, no ``pgm.*`` span, and
+    ``launch_lookup.launches`` up by one."""
+    from repro_torch.obs import trace
+
+    keys, p = _pgm_plan(card, "wiki", {"eps": 64})
+    q_host = sosd.make_queries(keys, 200_000, seed=2)
+    q = encode_keys(q_host, card)
+    fn = p.compile("cuda")
+    fn(q)
+    rec = trace.SpanRecorder()
+    before = pgm_kernel.launch_lookup.launches
+    with trace.recording(rec):
+        out = fn(q)
+    torch.cuda.synchronize()
+    assert pgm_kernel.launch_lookup.launches == before + 1
+    spans = rec.spans()
+    assert [s.name for s in spans] == ["kernel.launch", "lookup"]
+    assert spans[0].args == {"kernel": "pgm_lookup"}
+    assert spans[1].t0 <= spans[0].t0 \
+        and spans[0].t0 + spans[0].dur <= spans[1].t0 + spans[1].dur
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  np.searchsorted(keys, q_host))
+
+
+def test_pgm_lookup_graph_replay_equals_eager(card):
+    """The fused PGM lookup captured as a CUDA graph (no host sync or
+    host-to-device copy inside the call) replays to the eager answers,
+    for the batch it captured and for new queries copied into its input."""
+    keys, p = _pgm_plan(card, "wiki", {"eps": 64})
+    fn = p.compile("cuda")
+    q0 = encode_keys(sosd.make_queries(keys, 1 << 20, seed=4), card)
+    q1 = encode_keys(sosd.make_queries(keys, 1 << 20, seed=5), card)
+    static = q0.clone()
+    fn(static)                           # the state exists before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = pgm_kernel.launch_lookup.launches
+    with torch.cuda.graph(graph):
+        out = fn(static)
+    assert pgm_kernel.launch_lookup.launches == before + 1
+    for q in (q0, q1):
+        static.copy_(q)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(q))
+    assert pgm_kernel.launch_lookup.launches == before + 3
+
+
 FAMILIES = [("pgm", {}), ("radix_spline", {}), ("rbs", {}), ("btree", {}),
             ("ibtree", {}), ("binary_search", {}), ("pgm", {"eps": 8}),
             ("btree", {"sample": 16})]
@@ -304,7 +422,8 @@ FAMILIES = [("pgm", {}), ("radix_spline", {}), ("rbs", {}), ("btree", {}),
 @pytest.mark.parametrize("ds", ["amzn", "face"])
 def test_family_plans_on_the_card(card, ds, name, hyper):
     """Built on the card: both backends equal np.searchsorted, and the
-    cuda backend is one bounded_search launch a call, no rmi_lookup."""
+    cuda backend is one launch a call: PGM's fused pgm_lookup, every other
+    family's bounded_search, no rmi_lookup."""
     keys = sosd.generate(ds, 300_000, seed=1)
     q = np.concatenate([sosd.make_queries(keys, 200_000, seed=2),
                         np.array([0, 1, 2**63, 2**64 - 1], np.uint64),
@@ -314,11 +433,11 @@ def test_family_plans_on_the_card(card, ds, name, hyper):
     assert b.device.type == "cuda"
     p = plan.lower(b, encode_keys(keys, card))
     qt = encode_keys(q, card)
-    before = (rmi_kernel.launch_lookup.launches, bs_kernel.launch.launches)
+    before = _counts()
     got = p.compile("cuda")(qt)
     torch.cuda.synchronize()
-    assert (rmi_kernel.launch_lookup.launches,
-            bs_kernel.launch.launches) == (before[0], before[1] + 1)
+    launched = [a - b for a, b in zip(_counts(), before)]
+    assert launched == ([0, 0, 0, 1] if name == "pgm" else [0, 0, 1, 0])
     np.testing.assert_array_equal(got.cpu().numpy(), lb)
     np.testing.assert_array_equal(p.compile("torch")(qt).cpu().numpy(), lb)
 
@@ -375,10 +494,10 @@ def test_plan_transforms_on_the_card(card):
                 *p.compile_merged_scan(16, "cuda")(qt, dt),
                 *p.compile_instrumented("cuda")(qt, n_valid)]
 
-    before = bs_kernel.launch.launches
+    before = _counts()
     on_card = run(card)
     torch.cuda.synchronize()
-    assert bs_kernel.launch.launches == before + 4
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 0, 4]
     for got, want in zip(on_card, run(torch.device("cpu"))):
         assert torch.equal(got.cpu(), want)
     assert torch.equal(on_card[0].cpu(),
@@ -390,7 +509,7 @@ def test_plan_transforms_on_the_card(card):
 # ---------------------------------------------------------------------------
 def _counts():
     return (rmi_kernel.launch_lookup.launches, rmi_kernel.launch_bounds.launches,
-            bs_kernel.launch.launches)
+            bs_kernel.launch.launches, pgm_kernel.launch_lookup.launches)
 
 
 @pytest.mark.parametrize("index", ["rmi", "pgm"])
@@ -425,7 +544,7 @@ def test_lookup_service_on_the_card(card, index):
     np.testing.assert_array_equal(got, np.searchsorted(keys, q[:10_000]))
     batches = gpu.metrics.snapshot()["batches"]
     launched = [a - b for a, b in zip(after, before)]
-    want = [batches, 0, 0] if index == "rmi" else [0, 0, batches]
+    want = [batches, 0, 0, 0] if index == "rmi" else [0, 0, 0, batches]
     assert launched == want
     assert gpu.health_snapshot()["health_n"] == 10_000
     assert gpu.check_alerts() == [] and gpu.alerts.firing() == []
@@ -539,7 +658,7 @@ def test_graph_replay_equals_eager_on_every_warmed_bucket(card, index, kind):
                        instrumented=instr)
     cell = "read" if kind in ("plain", "instrumented", "merged",
                               "merged_instrumented") else "scan"
-    kernel = "rmi_lookup" if index == "rmi" else "bounded_search"
+    kernel = plan.FUSED_KERNELS[index]
     stream = torch.cuda.Stream(card)
     rng = np.random.default_rng(11)
     for bucket in (128, 256, 512, 1024, 2048, 4096):
@@ -547,9 +666,8 @@ def test_graph_replay_equals_eager_on_every_warmed_bucket(card, index, kind):
                         lambda: fn, d.device, warm=True)
         assert isinstance(exe, GraphExecutable)
         assert exe.captured == {"rmi_lookup": int(kernel == "rmi_lookup"),
-                                "rmi_bounds": 0,
-                                "bounded_search":
-                                    int(kernel == "bounded_search")}
+                                "rmi_bounds": 0, "bounded_search": 0,
+                                "pgm_lookup": int(kernel == "pgm_lookup")}
         m = int(rng.integers(bucket // 2 + 1, bucket + 1))
         q = sosd.make_queries(keys, m, seed=bucket)
         args = ((m,) if instr else ()) + bind
@@ -822,10 +940,10 @@ def test_routed_equals_broadcast_on_the_card(card, executor, index):
     touched = sum(r["batches"] for r in routed.metrics.per_shard())
     assert touched > routed.metrics.snapshot()["batches"]
     if executor == "sync":
-        kernel = 0 if index == "rmi" else 2
-        assert launched == [touched if i == kernel else 0 for i in range(3)]
+        kernel = 0 if index == "rmi" else 3
+        assert launched == [touched if i == kernel else 0 for i in range(4)]
     else:
-        assert launched == [0, 0, 0]          # every graph was warm
+        assert launched == [0, 0, 0, 0]       # every graph was warm
         assert routed.exec_cache.graph_stats()["graph_replays"] == touched
         assert routed.metrics.snapshot()["cache_misses"] == 0
 
@@ -1543,7 +1661,7 @@ def test_graph_captured_on_card1_from_a_card0_thread(two_cards):
 
 
 def test_kernel_launch_on_card1_from_card0(two_cards):
-    """Both kernels launch on cuda:1 while cuda:0 is current, and count
+    """The kernels launch on cuda:1 while cuda:0 is current, and count
     the launch on cuda:1."""
     c1 = torch.device("cuda", 1)
     torch.cuda.set_device(0)
@@ -1561,6 +1679,10 @@ def test_kernel_launch_on_card1_from_card0(two_cards):
     np.testing.assert_array_equal(ops.rmi_lookup(st, d, qt).cpu().numpy(),
                                   lb)
     assert rmi_kernel.launch_lookup.by_device["cuda:1"] == m1 + 1
+    p = plan.lower(spec.build(spec.IndexSpec("pgm"), keys, device=c1), d)
+    g1 = pgm_kernel.launch_lookup.by_device.get("cuda:1", 0)
+    np.testing.assert_array_equal(p.compile("cuda")(qt).cpu().numpy(), lb)
+    assert pgm_kernel.launch_lookup.by_device["cuda:1"] == g1 + 1
     assert torch.cuda.current_device() == 0
 
 

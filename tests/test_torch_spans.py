@@ -13,15 +13,18 @@ from repro_torch.kernels.common import encode_keys
 from repro_torch.kernels.rmi_lookup import ref as rmi_ref
 from repro_torch.obs import trace
 
-#: (index, hyper) pairs whose spans are checked: RMI takes the fused
-#: path's plain version on the CPU, PGM the predict then the search
-PLANS = [("rmi", {"branching": 256}),
-         ("pgm", {"eps": 16, "top_cutoff": 4})]
+#: (index, hyper, fused) whose spans are checked: RMI and PGM take their
+#: fused path's plain version on the CPU (PGM's runs the torch descent,
+#: outside ``lookup.predict``), PGM unfused the predict then the search
+PLANS = [("rmi", {"branching": 256}, None),
+         ("pgm", {"eps": 16, "top_cutoff": 4}, None),
+         ("pgm", {"eps": 16, "top_cutoff": 4}, False)]
+IDS = ["rmi", "pgm", "pgm-unfused"]
 #: read-path spans of one call of each plan's compiled cuda lookup on the
-#: CPU, beside ``lookup``
-READ_SPANS = {"rmi": set(),
-              "pgm": {"lookup.predict", "pgm.top", "pgm.level1", "pgm.leaf",
-                      "lookup.search"}}
+#: CPU, beside ``lookup``, by id
+READ_SPANS = {"rmi": set(), "pgm": {"pgm.top", "pgm.level1", "pgm.leaf"},
+              "pgm-unfused": {"lookup.predict", "pgm.top", "pgm.level1",
+                              "pgm.leaf", "lookup.search"}}
 
 
 @pytest.fixture(scope="module")
@@ -34,12 +37,12 @@ def queries(keys):
     return sosd.make_queries(keys, 3_000, seed=2)
 
 
-def setup_and_lookup(name, hyper, keys, queries):
+def setup_and_lookup(name, hyper, keys, queries, fused=None):
     """Build, lower and compile ``name`` on the CPU, and run one lookup
     of the cuda backend's callable; returns the plan and the ranks."""
     b = spec.build(spec.IndexSpec(name, hyper), keys, device="cpu")
     p = plan.lower(b, encode_keys(keys, "cpu"))
-    out = p.compile("cuda")(encode_keys(queries, "cpu"))
+    out = p.compile("cuda", fused)(encode_keys(queries, "cpu"))
     np.testing.assert_array_equal(out.numpy(), np.searchsorted(keys, queries))
     return p, out
 
@@ -50,9 +53,10 @@ def inside(child, parent) -> bool:
             and child.tid == parent.tid)
 
 
-@pytest.mark.parametrize("name,hyper", PLANS, ids=[n for n, _ in PLANS])
-def test_with_tracing_off_each_site_costs_one_guard(monkeypatch, keys,
-                                                    queries, name, hyper):
+@pytest.mark.parametrize("name,hyper,fused", PLANS, ids=IDS)
+def test_with_tracing_off_each_site_costs_one_guard(monkeypatch, request,
+                                                    keys, queries, name,
+                                                    hyper, fused):
     """No recorder and no profiler: nothing is recorded, no
     `record_function` is entered, and every site returns the one shared
     no-op after asking the profiler once."""
@@ -62,25 +66,27 @@ def test_with_tracing_off_each_site_costs_one_guard(monkeypatch, keys,
     enabled = torch.autograd._profiler_enabled
     monkeypatch.setattr(trace, "_profiler_enabled",
                         lambda: asked.append(1) or enabled())
-    p, _ = setup_and_lookup(name, hyper, keys, queries)
-    fn = p.compile("cuda")
+    p, _ = setup_and_lookup(name, hyper, keys, queries, fused)
+    fn = p.compile("cuda", fused)
     asked.clear()
     fn(encode_keys(queries, "cpu"))
     assert entered == []
     assert trace._CURRENT.get() is None
     # one guard a site: ``lookup`` and the path's own read spans
-    assert len(asked) == 1 + len(READ_SPANS[name])
+    assert len(asked) == 1 + len(READ_SPANS[request.node.callspec.id])
     assert trace.span("lookup", queries=1) is trace._NULL
     assert trace.maybe_span(None, "serve") is trace._NULL
 
 
-@pytest.mark.parametrize("name,hyper", PLANS, ids=[n for n, _ in PLANS])
-def test_a_recorder_gets_the_setup_and_read_spans_nested(keys, queries, name,
-                                                         hyper):
+@pytest.mark.parametrize("name,hyper,fused", PLANS, ids=IDS)
+def test_a_recorder_gets_the_setup_and_read_spans_nested(request, keys,
+                                                         queries, name,
+                                                         hyper, fused):
+    read = READ_SPANS[request.node.callspec.id]
     rec = trace.SpanRecorder()
     with trace.recording(rec) as installed:
         assert installed is rec and trace._CURRENT.get() is rec
-        setup_and_lookup(name, hyper, keys, queries)
+        setup_and_lookup(name, hyper, keys, queries, fused)
     assert trace._CURRENT.get() is None
     spans = rec.spans()
     by = {}
@@ -90,7 +96,7 @@ def test_a_recorder_gets_the_setup_and_read_spans_nested(keys, queries, name,
         if name == "rmi" else set()
     assert set(by) == ({"index.fit", "fit.host", "fit.verify",
                         "index.lower", "index.compile", "lookup"}
-                       | refit | READ_SPANS[name])
+                       | refit | read)
     assert all(len(v) == 1 for v in by.values())
     one = {k: v[0] for k, v in by.items()}
     assert one["index.fit"].args == {"index": name}
@@ -100,9 +106,9 @@ def test_a_recorder_gets_the_setup_and_read_spans_nested(keys, queries, name,
         assert inside(one[child], one["index.fit"])
     for child in refit:
         assert inside(one[child], one["index.compile"])
-    for child in READ_SPANS[name]:
+    for child in read:
         assert inside(one[child], one["lookup"])
-    if name == "pgm":
+    if "lookup.predict" in read:
         for child in ("pgm.top", "pgm.level1", "pgm.leaf"):
             assert inside(one[child], one["lookup.predict"])
         assert not inside(one["lookup.search"], one["lookup.predict"])
@@ -111,7 +117,7 @@ def test_a_recorder_gets_the_setup_and_read_spans_nested(keys, queries, name,
         <= one["lookup"].t0
     # outside `recording` nothing more is written
     n = rec.n_recorded
-    setup_and_lookup(name, hyper, keys, queries)
+    setup_and_lookup(name, hyper, keys, queries, fused)
     assert rec.n_recorded == n
 
 
@@ -129,12 +135,13 @@ def test_maybe_span_mirrors_onto_a_running_profiler():
     assert rec.spans()[0].args == {"key": 1}
 
 
-@pytest.mark.parametrize("name,hyper", PLANS, ids=[n for n, _ in PLANS])
-def test_under_a_cpu_profiler_read_spans_lie_inside_lookup(tmp_path, keys,
-                                                           queries, name,
-                                                           hyper):
+@pytest.mark.parametrize("name,hyper,fused", PLANS, ids=IDS)
+def test_under_a_cpu_profiler_read_spans_lie_inside_lookup(request, tmp_path,
+                                                           keys, queries,
+                                                           name, hyper,
+                                                           fused):
     b = spec.build(spec.IndexSpec(name, hyper), keys, device="cpu")
-    fn = plan.lower(b, encode_keys(keys, "cpu")).compile("cuda")
+    fn = plan.lower(b, encode_keys(keys, "cpu")).compile("cuda", fused)
     q = encode_keys(queries, "cpu")
     fn(q)
     with torch.profiler.profile(
@@ -153,7 +160,7 @@ def test_under_a_cpu_profiler_read_spans_lie_inside_lookup(tmp_path, keys,
     found = {e["name"] for e in ann
              if l0 <= float(e["ts"]) <= float(e["ts"]) + float(e["dur"])
              <= l1 + 1e-3}
-    assert READ_SPANS[name] | {"lookup"} <= found
+    assert READ_SPANS[request.node.callspec.id] | {"lookup"} <= found
 
 
 def clipped_numpy(lo, hi, n, max_width):
@@ -168,11 +175,13 @@ def steps_numpy(width):
     return np.ceil(np.log2(w)).astype(np.int64)
 
 
-@pytest.mark.parametrize("name,hyper", PLANS + [("pgm", {"eps": 64})],
+@pytest.mark.parametrize("name,hyper", [PLANS[0][:2], PLANS[1][:2],
+                                        ("pgm", {"eps": 64})],
                          ids=["rmi", "pgm", "pgm-64"])
 def test_the_window_counter_equals_numpy(keys, queries, name, hyper):
     """RMI (fused): the windows from the f32 state's ``err`` table;
-    PGM: from the plan's bounds; each clipped as the kernel clips it."""
+    PGM (fused too): from the plan's bounds, which ``pgm_lookup`` searches;
+    each clipped as the kernel clips it."""
     p, _ = setup_and_lookup(name, hyper, keys, queries)
     q = encode_keys(queries, "cpu")
     n = keys.shape[0]
