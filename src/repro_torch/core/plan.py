@@ -39,9 +39,11 @@ compiled: the ``compile*`` entry points cache the callables per plan.
 Traced (`repro_torch.obs.trace.span`): ``index.lower``, ``index.compile``
 (a callable made on a cache miss), ``lookup`` (each call of a `compile`
 callable) and, on the unfused cuda path, ``lookup.predict`` (for PGM
-with its ``pgm.*`` spans, which the fused kernel does not show).  The
-window counter (`searched_windows`, reduced by `window_counts`) reads
-what the cuda lookup's searching kernel is handed.
+with its ``pgm.*`` spans, which the fused kernel does not show; for
+RadixSpline its ``rs.*``).  The window counter (`searched_windows`,
+reduced by `window_counts`) reads what the cuda lookup's searching
+kernel is handed; RadixSpline's `knot_windows`, what its knot search
+is.
 """
 from __future__ import annotations
 

@@ -13,6 +13,12 @@ f64 and the gap between keys.  The reference relies on the corridor for
 that and never checks it; the port checks ``|pred - rank| <= e`` over
 every key through its own predict on the build's device, and raises if
 it fails.
+
+Traced (`repro_torch.obs.trace.span`): the build's ``fit.host`` (the
+host fit) and ``fit.verify`` (the radix table and the check), and
+`predict`'s ``rs.radix`` (the prefix and the table's loads), ``rs.knots``
+(the bounded search over the knots) and ``rs.interp`` (the
+interpolation).  `knot_windows` is the knot search's window counter.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch.core import _pla, base, search, spec
 from repro_torch.kernels.common import (encode_keys, keys_to_f64,
                                         radix_prefix, resolve_device)
+from repro_torch.obs.trace import span as trace_span
 
 spec.register_schema(
     "radix_spline",
@@ -48,6 +55,38 @@ def radix_shape(keys: np.ndarray, radix_bits: int):
     return r, sig_bits - r
 
 
+def knot_windows(state, q):
+    """The knots ``[slo, shi]`` (``shi`` inclusive, int64) that the radix
+    table leaves `predict` to search for each encoded query: its
+    prefix's bucket.  `core.plan.window_counts` reduces them."""
+    p = radix_prefix(q, state["kmin"], state["shift"], state["radix_bits"])
+    return state["table"][p], state["table"][p + 1]
+
+
+def predict(state, q):
+    """The spline's f64 position of each encoded query: the radix
+    bucket's knots, the last knot ``<= q`` among them (upper bound - 1),
+    and the interpolation to the next knot.  Traced as ``rs.radix``,
+    ``rs.knots`` and ``rs.interp``."""
+    kx, ky = state["kx"], state["ky"]
+    m = kx.shape[0]
+    with trace_span("rs.radix"):
+        slo, shi = knot_windows(state, q)
+    with trace_span("rs.knots"):
+        qf = keys_to_f64(q)
+        ub = search.bounded_binary(kx, qf, slo, shi, state["max_gap"] + 2,
+                                   side="right")
+        seg = torch.clamp(ub - 1, 0, m - 2)
+    with trace_span("rs.interp"):
+        x0, x1 = kx[seg], kx[seg + 1]
+        y0, y1 = ky[seg], ky[seg + 1]
+        dx = x1 - x0
+        t = torch.where(dx > 0, (qf - x0) / torch.where(dx == 0, 1.0, dx),
+                        0.0)
+        t = torch.clamp(t, 0.0, 1.0)
+        return y0 + t * (y1 - y0)
+
+
 def _assemble(keys: np.ndarray, kx: np.ndarray, ky: np.ndarray, eps: int,
               radix_bits: int, last_mile: str, span: int,
               dev) -> base.IndexBuild:
@@ -71,26 +110,13 @@ def _assemble(keys: np.ndarray, kx: np.ndarray, ky: np.ndarray, eps: int,
         "ky": torch.from_numpy(np.array(ky, np.float64)).to(dev),
         "table": torch.from_numpy(table).to(dev),
         "kmin": encode_keys(np.array([kmin]), dev)[0],
+        "shift": shift,
+        "radix_bits": r,
+        "max_gap": max_gap,
     }
     size = base.nbytes(state["kx"], state["ky"], state["table"])
     e = int(eps) + span + 1
     max_err = 2 * e + 2
-
-    def predict(state, q):
-        qf = keys_to_f64(q)
-        p = radix_prefix(q, state["kmin"], shift, r)
-        slo, shi = state["table"][p], state["table"][p + 1]
-        # segment = last knot <= q (upper_bound - 1), searched in [slo, shi]
-        ub = search.bounded_binary(state["kx"], qf, slo, shi, max_gap + 2,
-                                   side="right")
-        seg = torch.clamp(ub - 1, 0, m - 2)
-        x0, x1 = state["kx"][seg], state["kx"][seg + 1]
-        y0, y1 = state["ky"][seg], state["ky"][seg + 1]
-        dx = x1 - x0
-        t = torch.where(dx > 0, (qf - x0) / torch.where(dx == 0, 1.0, dx),
-                        0.0)
-        t = torch.clamp(t, 0.0, 1.0)
-        return y0 + t * (y1 - y0)
 
     def lookup(state, q) -> base.SearchBound:
         pred = predict(state, q)
@@ -128,10 +154,14 @@ def build(
     device=None,
 ) -> base.IndexBuild:
     """Fit a RadixSpline over sorted uint64 ``keys`` on the host; check
-    it on ``device`` (None: the CUDA card)."""
+    it on ``device`` (None: the CUDA card).  Traced as ``fit.host`` and
+    ``fit.verify``."""
     dev = resolve_device(device)
     keys = np.asarray(keys)
-    xu, y_first, span = base.grouped_keys(keys)
-    kx, ky = _pla.greedy_spline(xu, y_first, float(eps))
-    del xu, y_first
-    return _assemble(keys, kx, ky, eps, radix_bits, last_mile, span, dev)
+    with trace_span("fit.host"):
+        xu, y_first, span = base.grouped_keys(keys)
+        kx, ky = _pla.greedy_spline(xu, y_first, float(eps))
+        del xu, y_first
+    with trace_span("fit.verify"):
+        return _assemble(keys, kx, ky, eps, radix_bits, last_mile, span,
+                         dev)

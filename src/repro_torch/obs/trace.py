@@ -46,7 +46,9 @@ Span taxonomy (the ``cat`` field):
               PGM's ``pgm.top``, ``pgm.level{k}``, ``pgm.leaf`` (its
               torch descent, `core.pgm.descend`; the fused
               ``pgm_lookup`` kernel on the card shows none),
-              ``lookup.search`` and ``kernel.launch`` (the ctypes call)
+              RadixSpline's ``rs.radix``, ``rs.knots``, ``rs.interp``
+              (`core.radix_spline.predict`), ``lookup.search`` and
+              ``kernel.launch`` (the ctypes call)
 
 Export is the Chrome trace-event JSON format ("traceEvents" with "X"
 complete events, µs timestamps), openable in `chrome://tracing` or
